@@ -1,0 +1,17 @@
+"""capital_tpu_torch: the PyTorch/CUDA port of capital_tpu.
+
+Same module layout and public names as the JAX package (`Grid`,
+`DistMatrix`, `cholinv.Config`, `cholinv.factor`,
+`validate.cholesky_residual`, ...). This slice covers the single-device
+recursive Cholesky + inverse; its three TPU kernels (TRMM, SYRK, the
+fused leaf) are hand-written CUDA kernels for Hopper (sm_90a) under
+`csrc/`, built with nvcc at first use.
+
+Entry points run on cuda:0 unless the caller passes a CPU device. It
+imports torch, numpy and the standard library, never JAX.
+"""
+
+from capital_tpu_torch.grid import Grid
+from capital_tpu_torch.matrix import DistMatrix, Structure
+
+__all__ = ["Grid", "DistMatrix", "Structure"]

@@ -1,0 +1,44 @@
+"""Carry state across from the JAX package, as numpy.
+
+cholinv has no weights: its state is the operand and the configuration.
+Both cross as plain data, so this module imports nothing of the JAX
+package: a caller hands over `np.asarray(dist_matrix.data)` and
+`dataclasses.asdict(cfg)`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from capital_tpu_torch.algs import cholinv
+from capital_tpu_torch.grid import default_device
+from capital_tpu_torch.matrix import DistMatrix, Structure
+
+
+def dist_matrix_from_numpy(data, shape, structure_value="rect",
+                           device=None) -> DistMatrix:
+    """A DistMatrix holding a copy of `data` (padded storage) on `device`
+    (None: cuda:0, raising when no GPU is present), with logical `shape`
+    and the Structure whose value is given."""
+    t = torch.from_numpy(np.array(data, copy=True)).to(default_device(device))
+    return DistMatrix(t, tuple(int(s) for s in shape),
+                      Structure(getattr(structure_value, "value",
+                                        structure_value)))
+
+
+def config_from_dict(d: dict) -> cholinv.Config:
+    """The port's cholinv.Config from `dataclasses.asdict` of the JAX one.
+    base_policy may be the enum member or its string value; an unknown
+    field raises."""
+    names = {f.name for f in dataclasses.fields(cholinv.Config)}
+    unknown = set(d) - names
+    if unknown:
+        raise ValueError(f"unknown cholinv.Config fields: {sorted(unknown)}")
+    kw = dict(d)
+    if "base_policy" in kw:
+        kw["base_policy"] = getattr(kw["base_policy"], "value",
+                                    kw["base_policy"])
+    return cholinv.Config(**kw)

@@ -1,0 +1,79 @@
+"""Local factorization: Cholesky + simultaneous triangular inverse
+(counterpart of capital_tpu/ops/lapack.py).
+
+  chol_inv(A) -> (R, Rinv)  with A = R^T R, R upper-triangular.
+
+method:
+  * 'xla'    - torch.linalg.cholesky + solve_triangular against I (the
+               name is kept so CAPITAL_CHOL_METHOD settings carry over);
+  * 'pallas' - the hand-written fused leaf kernel (ops/cuda_chol.py; its
+               plain PyTorch version on a CPU tensor). The name is kept
+               for the same reason;
+  * 'auto'   - CAPITAL_CHOL_METHOD if set, else 'pallas' on a GPU and
+               'xla' elsewhere; blocks that are not a multiple of 128 or
+               exceed 1024 take 'xla'.
+
+geqrf/orgqr/qr wait for the CholeskyQR slice.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+
+def _f32in(x: torch.Tensor) -> torch.Tensor:
+    """Low-precision storage factors in f32."""
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+
+
+def chol_inv_xla(a: torch.Tensor, lower: bool = False):
+    """(R, Rinv) with A = R^T R (upper, default) or (L, Linv), A = L L^T."""
+    dt = a.dtype
+    a = _f32in(a)
+    L = torch.linalg.cholesky(a)
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False, left=True)
+    L, Linv = L.to(dt), Linv.to(dt)
+    if lower:
+        return L, Linv
+    return L.mT, Linv.mT
+
+
+def potrf(a: torch.Tensor, lower: bool = False) -> torch.Tensor:
+    """Cholesky factor only."""
+    L = torch.linalg.cholesky(_f32in(a)).to(a.dtype)
+    return L if lower else L.mT
+
+
+def trtri(t: torch.Tensor, lower: bool = False) -> torch.Tensor:
+    """Triangular inverse."""
+    t32 = _f32in(t)
+    eye = torch.eye(t32.shape[-1], dtype=t32.dtype, device=t32.device)
+    return torch.linalg.solve_triangular(t32, eye, upper=not lower,
+                                         left=True).to(t.dtype)
+
+
+def chol_inv(a: torch.Tensor, lower: bool = False, method: str = "auto",
+             platform: str | None = None):
+    """Fused Cholesky + triangular inverse. See module docstring.
+    platform: 'gpu'/'cpu' of the grid the call runs on (default: a's)."""
+    if method == "auto":
+        on_gpu = platform == "gpu" if platform else a.is_cuda
+        method = os.environ.get("CAPITAL_CHOL_METHOD") or (
+            "pallas" if on_gpu else "xla")
+        n = a.shape[-1]
+        if method == "pallas" and (n % 128 or n > 1024):
+            method = "xla"
+    if method == "xla":
+        chol_inv.xla_calls += 1
+        return chol_inv_xla(a, lower=lower)
+    if method == "pallas":
+        from capital_tpu_torch.ops.cuda_chol import chol_inv_cuda
+
+        return chol_inv_cuda(a, lower=lower)
+    raise ValueError(f"unknown chol_inv method {method!r}")
+
+
+chol_inv.xla_calls = 0

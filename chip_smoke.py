@@ -1,0 +1,320 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (capital_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+1. Builds the hand-written CUDA kernels from capital_tpu_torch/csrc/.
+2. Kernel phase: holds each kernel against its plain PyTorch version on
+   the same inputs at the main path's shapes, at 'highest' and 'high':
+   TRMM in all four cases on a 16384 window, SYRK on a 16384 x 16384
+   window, the fused leaf at n = 512. Tolerance: relative Frobenius 1e-5
+   for each output (the leaf's R and Rinv apart), as the kernel and the
+   plain version sum in different orders. Times each
+   kernel, its plain version, one library call computing the same function
+   (never called by the port) and the card's bound for the work.
+3. Main path: cholinv.factor at n = 32768 f32, 'high', base case 512,
+   complete_inv, then n = 8192 at 'highest'. Launch counters are zeroed
+   just before each factor and read just after; the script fails unless
+   every kernel of the path ran the expected number of times and no
+   dot/xla fallback ran. Chunked residuals must be below 1e-5. GFLOP/s
+   (useful flops 2n^3/3) and the time ratio against
+   torch.linalg.cholesky + solve_triangular at the same n are printed.
+
+Exits non-zero on any failure, or when no CUDA device is present. The
+last two lines are a JSON object of per-kernel numbers and
+{"ok": true, "device": {...}}; a copy of the per-kernel JSON is written
+to chiprun_out/chip_smoke.json.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+TOL = 1e-5
+PEAK_F32 = 67e12      # H100 SXM FFMA, dense (NVIDIA data sheet)
+PEAK_BF16 = 989e12    # H100 SXM bf16 tensor cores, dense
+MEM_BPS = 3.35e12     # H100 SXM HBM3
+REPLACES = {
+    "trmm_upper": "capital_tpu/ops/pallas_trmm.py:324",
+    "syrk_upper": "capital_tpu/ops/pallas_syrk.py:149",
+    "chol_inv": "capital_tpu/ops/pallas_chol.py:153",
+}
+SOURCE = {
+    "trmm_upper": "capital_tpu_torch/csrc/trmm_upper.cu",
+    "syrk_upper": "capital_tpu_torch/csrc/syrk_upper.cu",
+    "chol_inv": "capital_tpu_torch/csrc/chol_inv.cu",
+}
+# main path runs: (n, precision); the first is the headline cell
+MAIN_RUNS = ((32768, "high"), (8192, "highest"))
+
+
+def smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def events_ms(fn, reps: int) -> float:
+    """Mean ms of fn() over reps launches, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def once_ms(fn):
+    """(ms, result) of one call, queue drained before and after."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop), out
+
+
+def bound(ops: float, nbytes: float, peak: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of their type."""
+    t_ops, t_bytes = ops / peak, nbytes / MEM_BPS
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def compare(got: torch.Tensor, want: torch.Tensor):
+    d = got.double() - want.double()
+    rel = float(torch.linalg.norm(d) / torch.linalg.norm(want.double()))
+    return rel, float(d.abs().max())
+
+
+def tree(n: int, bc: int, split: int = 1):
+    """(leaves, inner nodes) of cholinv's recursion at base case bc."""
+    if n <= bc:
+        return 1, 0
+    n1 = max(bc, n >> split)
+    l1, i1 = tree(n1, bc, split)
+    l2, i2 = tree(n - n1, bc, split)
+    return l1 + l2, i1 + i2 + 1
+
+
+def kernel_phase(level: str, failures: list) -> list:
+    from capital_tpu_torch.ops.cuda_chol import chol_inv_cuda, chol_inv_plain
+    from capital_tpu_torch.ops.cuda_syrk import syrk_upper, syrk_upper_plain
+    from capital_tpu_torch.ops.cuda_trmm import trmm_upper, trmm_upper_plain
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n = m = 16384
+    passes, peak = (1, PEAK_F32) if level == "highest" else (3, PEAK_BF16)
+    rows = []
+
+    def add(name, case, shape, got, plain_ms, want, ms, lib_ms, ops, nbytes,
+            peak_):
+        """got/want: a tensor, or a tuple of outputs each held to TOL on
+        its own (so a small output is not hidden by a large one)."""
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        errs = [compare(g, w) for g, w in zip(got, want)]
+        rel, mae = max(e[0] for e in errs), max(e[1] for e in errs)
+        b_ms, b_by = bound(ops, nbytes, peak_)
+        label = name if case is None else f"{name}[{case}]"
+        row = {"name": f"{label}@{level}", "kernel": name, "case": case,
+               "route": "cuda", "source": SOURCE[name],
+               "replaces": REPLACES[name], "precision": level,
+               "shape": shape, "launches": None, "max_abs_err": mae,
+               "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        rows.append(row)
+        print(f"[kernel] {row['name']} {shape}: rel_err={rel:.3e} "
+              f"max_abs_err={mae:.3e} kernel_ms={ms:.3f} "
+              f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
+              f"bound_ms={b_ms:.3f} ({b_by})", flush=True)
+        if not rel <= TOL:
+            failures.append(f"{row['name']}: rel_err {rel:.3e} > {TOL}")
+
+    # TRMM: U is the top-left 16384 block, B the 16384 x 16384 window at
+    # column offset 16384 of a 16384 x 32768 workspace (cholinv's shapes)
+    u = torch.rand((n, n), generator=gen, device=dev) - 0.5
+    work = torch.rand((n, 2 * n), generator=gen, device=dev) - 0.5
+    bw = (0, n, n, m)
+    bv = work[:, n:]
+    for side, trans in (("L", True), ("R", False), ("L", False),
+                        ("R", True)):
+        case = side + (",trans" if trans else "")
+
+        def k(side=side, trans=trans):
+            return trmm_upper(u, work, side=side, trans_a=trans,
+                              b_window=bw, matmul_precision=level)
+
+        ms = events_ms(k, 3)
+        got = k()
+        plain_ms, want = once_ms(lambda: trmm_upper_plain(
+            u, bv, side=side, trans_a=trans, prec=level))
+        def lib(side=side, trans=trans):
+            t = torch.triu(u).T if trans else torch.triu(u)
+            return torch.matmul(t, bv) if side == "L" else torch.matmul(bv, t)
+
+        lib_ms = events_ms(lib, 2)
+        ops = passes * m * n * (n + 1)
+        nbytes = 4 * (n * (n + 1) / 2 + 2 * n * m)
+        add("trmm_upper", case, [n, m], got, plain_ms, want, ms, lib_ms, ops,
+            nbytes, peak)
+        del got, want
+    del u
+
+    # SYRK: Gram of the same 16384 x 16384 window (the top-level Schur)
+    def ks():
+        return syrk_upper(work, a_window=bw, matmul_precision=level)
+
+    ms = events_ms(ks, 3)
+    got = ks()
+    sym = bool(torch.equal(got, got.T))
+    if not sym:
+        failures.append(f"syrk_upper @{level}: G is not bitwise symmetric")
+    plain_ms, want = once_ms(lambda: syrk_upper_plain(bv, prec=level))
+    lib_ms = events_ms(lambda: torch.matmul(bv.T, bv), 2)
+    add("syrk_upper", None, [n, m], got, plain_ms, want, ms, lib_ms,
+        passes * m * n * (n + 1), 4 * (m * n + n * n), peak)
+    del got, want, work, bv
+
+    # leaf: one 512 SPD block (all f32 at every level). A Gram matrix plus
+    # a modest shift (condition ~5), so R and Rinv both carry off-diagonal
+    # weight; each is held to TOL on its own
+    nl = 512
+    x = torch.rand((nl, nl), generator=gen, device=dev) - 0.5
+    g = x @ x.T
+    a = (g + g.T) * 0.5 + (nl / 12) * torch.eye(nl, device=dev)
+    ms = events_ms(lambda: chol_inv_cuda(a), 20)
+    got_r, got_ri = chol_inv_cuda(a)
+    plain_ms, (pr, pri) = once_ms(lambda: chol_inv_plain(a))
+    eye = torch.eye(nl, device=dev)
+
+    def lib_leaf():
+        lo = torch.linalg.cholesky(a)
+        return torch.linalg.solve_triangular(lo, eye, upper=False)
+
+    lib_ms = events_ms(lib_leaf, 20)
+    add("chol_inv", None, [nl, nl], (got_r, got_ri), plain_ms,
+        (torch.triu(pr), torch.triu(pri)), ms, lib_ms, 2 * nl**3 / 3,
+        4 * 3 * nl * nl, PEAK_F32)
+    return rows
+
+
+def main_path(n: int, level: str, failures: list) -> dict:
+    from capital_tpu_torch import Grid, matrix, validate
+    from capital_tpu_torch.algs import cholinv
+    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops.precision import default_matmul_precision
+
+    grid = Grid.square(c=1, d=1)
+    cfg = cholinv.Config(complete_inv=True)  # split 1, base case 512
+    a = matrix.symmetric(grid, n, 0, align=128)
+    bc = cfg.base_dim(grid, n)
+    with default_matmul_precision(level):
+        reset_counters()
+        secs, (r, ri) = once_ms(lambda: cholinv.factor(grid, a, cfg))
+        got = counters()
+        del r, ri
+        secs2, (r, ri) = once_ms(lambda: cholinv.factor(grid, a, cfg))
+    best_ms = min(secs, secs2)
+    leaves, inner = tree(n, bc)
+    want = {"trmm_upper": 3 * inner, "syrk_upper": inner, "chol_inv": leaves,
+            "trmm_upper_by_case": {"L": inner, "L,trans": inner, "R": inner,
+                                   "R,trans": 0},
+            "trmm_dot": 0, "syrk_dot": 0, "chol_xla": 0}
+    if got != want:
+        failures.append(f"main path n={n}: launch counts {got} != {want}")
+    inv = float(validate.inverse_residual(grid, r, ri, chunks=8, masked=True))
+    del ri
+    res = float(validate.cholesky_residual(grid, a.data, r, chunks=8,
+                                           masked=True))
+    del r
+    if not (res < 1e-5 and inv < 1e-5):  # also fails on NaN
+        failures.append(f"main path n={n}: residual {res} / inverse "
+                        f"residual {inv} not below 1e-5")
+
+    def library():
+        lo = torch.linalg.cholesky(a.data)
+        eye = torch.eye(n, device=a.data.device)
+        return torch.linalg.solve_triangular(lo, eye, upper=False)
+
+    once_ms(lambda: torch.linalg.cholesky(a.data[:1024, :1024]))  # warm up
+    lib_ms, out = once_ms(library)
+    del out, a
+    torch.cuda.empty_cache()
+    gflops = (2 * n**3 / 3) / (best_ms / 1e3) / 1e9
+    rec = {"n": n, "precision": level, "bc": bc, "ms": [secs, secs2],
+           "gflops": gflops, "library_ms": lib_ms,
+           "vs_library": lib_ms / best_ms, "residual": res,
+           "inv_residual": inv, "launches": got}
+    print(f"[main] {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    try:
+        from capital_tpu_torch.ops import _build
+    except ImportError as exc:
+        print(f"chip_smoke: the capital_tpu_torch package is missing: {exc}",
+              file=sys.stderr)
+        return 1
+    card = smi()
+    print(card, flush=True)
+
+    print(f"[build] {_build.build():.1f} s", flush=True)
+    failures: list[str] = []
+    rows = []
+    for level in ("highest", "high"):
+        rows += kernel_phase(level, failures)
+    torch.cuda.empty_cache()
+    mains = [main_path(n, level, failures) for n, level in MAIN_RUNS]
+    for row in rows:
+        # launches: the main-path run at the row's precision
+        run = next(mp for mp in mains if mp["precision"] == row["precision"])
+        row["launches"] = (run["launches"]["trmm_upper_by_case"][row["case"]]
+                           if row["case"] else run["launches"][row["kernel"]])
+    # TRMM's R,trans case is not on cholinv's path (QDWH uses it): it is
+    # held against its plain version above and kept out of the path's list
+    path_rows = [r for r in rows if r["case"] != "R,trans"]
+    for row in path_rows:
+        if row["launches"] == 0:
+            failures.append(f"{row['name']} never launched on the main path")
+    result = {"card": card, "kernels": rows, "main": mains,
+              "failures": failures}
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    if failures:
+        for msg in failures:
+            print(f"FAIL: {msg}", file=sys.stderr)
+        return 1
+    print(card)
+    print(json.dumps({"kernels": path_rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    t0 = time.perf_counter()
+    rc = main()
+    print(f"[chip_smoke] {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    sys.exit(rc)
