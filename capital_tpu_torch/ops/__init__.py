@@ -4,9 +4,9 @@ from __future__ import annotations
 
 
 def reset_counters() -> None:
-    """Zero every kernel launch count and every dot/xla fallback count."""
-    from capital_tpu_torch.ops import blas, cuda_chol, cuda_syrk, cuda_trmm
-    from capital_tpu_torch.ops import lapack
+    """Zero every kernel launch count and every fallback count."""
+    from capital_tpu_torch.ops import blas, cuda_chol, cuda_getrf, cuda_syrk
+    from capital_tpu_torch.ops import cuda_trmm, lapack
 
     cuda_trmm.trmm_upper.launches = 0
     cuda_trmm.trmm_upper.by_case = dict.fromkeys(cuda_trmm.CASES, 0)
@@ -15,13 +15,18 @@ def reset_counters() -> None:
     blas.trmm.dot_calls = 0
     blas.syrk.dot_calls = 0
     lapack.chol_inv.xla_calls = 0
+    cuda_getrf.getrf_leaf.launches = 0
+    cuda_getrf.getrf_leaf_plain.fallbacks = 0
+    lapack.lu.library_calls = 0
 
 
 def counters() -> dict:
     """Kernel launches since the last reset, with the fallbacks that
-    bypassed a kernel (`trmm_dot`, `syrk_dot`, `chol_xla`)."""
-    from capital_tpu_torch.ops import blas, cuda_chol, cuda_syrk, cuda_trmm
-    from capital_tpu_torch.ops import lapack
+    bypassed a kernel (`trmm_dot`, `syrk_dot`, `chol_xla`; for LU
+    `leaf_plain`, the plain leaf that CAPITAL_LU_LEAF=jax asks for, and
+    `lu_library`, torch.linalg.lu_factor panels)."""
+    from capital_tpu_torch.ops import blas, cuda_chol, cuda_getrf, cuda_syrk
+    from capital_tpu_torch.ops import cuda_trmm, lapack
 
     return {
         "trmm_upper": cuda_trmm.trmm_upper.launches,
@@ -31,4 +36,7 @@ def counters() -> dict:
         "trmm_dot": blas.trmm.dot_calls,
         "syrk_dot": blas.syrk.dot_calls,
         "chol_xla": lapack.chol_inv.xla_calls,
+        "getrf_leaf": cuda_getrf.getrf_leaf.launches,
+        "leaf_plain": cuda_getrf.getrf_leaf_plain.fallbacks,
+        "lu_library": lapack.lu.library_calls,
     }

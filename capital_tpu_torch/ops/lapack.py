@@ -13,6 +13,10 @@ method:
                'xla' elsewhere; blocks that are not a multiple of 128 or
                exceed 1024 take 'xla'.
 
+  lu(A) -> (LU, pivots, perm)  partial-pivoting LU, lax.linalg.lu's
+            return convention (algs/lu.py's CAPITAL_LU_PANEL=xla and CPU
+            panel route).
+
 geqrf/orgqr/qr wait for the CholeskyQR slice.
 """
 
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 
@@ -77,3 +82,27 @@ def chol_inv(a: torch.Tensor, lower: bool = False, method: str = "auto",
 
 
 chol_inv.xla_calls = 0
+
+
+def lu(a: torch.Tensor):
+    """(lu, pivots, perm) of an (m, k) matrix by torch.linalg.lu_factor:
+    lu holds L (unit diagonal implicit) below and U on and above the
+    diagonal, row-swapped; pivots (min(m, k),) int32 are 0-based LAPACK
+    swap targets; perm (m,) int32 has lu = a[perm]. Low-precision storage
+    factors in f32 and is rounded back."""
+    lu.library_calls += 1
+    lu_, piv = torch.linalg.lu_factor(_f32in(a))
+    piv = (piv - 1).to(torch.int32)   # LAPACK's are 1-based
+    return lu_.to(a.dtype), piv, perm_from_pivots(piv, a.shape[0])
+
+
+def perm_from_pivots(pivots: torch.Tensor, m: int) -> torch.Tensor:
+    """(m,) int32 row permutation of a 0-based LAPACK swap sequence (row i
+    swapped with pivots[i], in order), on pivots' device."""
+    perm = np.arange(m, dtype=np.int32)
+    for i, p in enumerate(pivots.cpu().tolist()):
+        perm[i], perm[p] = perm[p], perm[i]
+    return torch.from_numpy(perm).to(pivots.device)
+
+
+lu.library_calls = 0

@@ -3,27 +3,41 @@
 
     python3 chip_smoke.py
 
-1. Builds the hand-written CUDA kernels from capital_tpu_torch/csrc/.
+1. Builds the hand-written CUDA kernels from capital_tpu_torch/csrc/ (one
+   nvcc per source, all at once).
 2. Kernel phase: holds each kernel against its plain PyTorch version on
-   the same inputs at the main path's shapes, at 'highest' and 'high':
-   TRMM in all four cases on a 16384 window, SYRK on a 16384 x 16384
-   window, the fused leaf at n = 512. Tolerance: relative Frobenius 1e-5
-   for each output (the leaf's R and Rinv apart), as the kernel and the
-   plain version sum in different orders. Times each
-   kernel, its plain version, one library call computing the same function
-   (never called by the port) and the card's bound for the work.
-3. Main path: cholinv.factor at n = 32768 f32, 'high', base case 512,
-   complete_inv, then n = 8192 at 'highest'. Launch counters are zeroed
-   just before each factor and read just after; the script fails unless
-   every kernel of the path ran the expected number of times and no
-   dot/xla fallback ran. Chunked residuals must be below 1e-5. GFLOP/s
-   (useful flops 2n^3/3) and the time ratio against
-   torch.linalg.cholesky + solve_triangular at the same n are printed.
+   the same inputs at the main paths' shapes. Times each kernel, its plain
+   version, one library call computing the same function (never called
+   by the port) and the card's bound for the work.
+   - at 'highest' and 'high': TRMM in all four cases on a 16384 window,
+     SYRK on a 16384 x 16384 window, the fused Cholesky leaf at n = 512.
+     Tolerance: relative Frobenius 1e-5 for each output (the leaf's R and
+     Rinv apart), as the kernel and the plain version sum in different
+     orders;
+   - the LU panel leaf (getrf_leaf) on two strips the LU path runs: the
+     tallest, 32768 x 128, and a ragged 17792 x 128, each a window of a
+     workspace with row stride 32768. pj and pivots must be identical and
+     the factor within relative Frobenius 1e-6 (the two share their
+     arithmetic); the library call is torch.linalg.lu_factor.
+3. cholinv main path: cholinv.factor at n = 32768 f32, 'high', base case
+   512, complete_inv, then n = 8192 at 'highest'. Chunked residuals must
+   be below 1e-5.
+4. LU main path: lu.factor at n = 32768, nb = 2048, f32, 'highest', seed
+   0, two calls; the chunked ||PA - LU|| / ||A|| must be below 5e-4 and
+   perm a permutation; the library's residual (torch.linalg.lu_factor on
+   the same operand) is printed beside it. Then n = 8192, nb = 1024 with
+   CAPITAL_LU_LOOKAHEAD=1 and lu.solve_factored on 256 right-hand sides
+   with 2 refinement sweeps: solve residual below 1e-3.
+   Every main path zeroes the launch counters just before it and reads
+   them just after: each kernel of the path must have run the number of
+   times its recursion gives, and no fallback may have run. GFLOP/s and
+   the time ratio against the library call at the same n are printed.
 
 Exits non-zero on any failure, or when no CUDA device is present. The
-last two lines are a JSON object of per-kernel numbers and
-{"ok": true, "device": {...}}; a copy of the per-kernel JSON is written
-to chiprun_out/chip_smoke.json.
+last three lines are the card's name and power limit, a JSON object with
+one row per kernel and shape (every kernel, those no ported path runs
+yet with 0 launches) and {"ok": true, "device": {...}}; the full record
+is written to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -44,14 +58,19 @@ REPLACES = {
     "trmm_upper": "capital_tpu/ops/pallas_trmm.py:324",
     "syrk_upper": "capital_tpu/ops/pallas_syrk.py:149",
     "chol_inv": "capital_tpu/ops/pallas_chol.py:153",
+    "getrf_leaf": "capital_tpu/ops/pallas_getrf.py:135",
 }
 SOURCE = {
     "trmm_upper": "capital_tpu_torch/csrc/trmm_upper.cu",
     "syrk_upper": "capital_tpu_torch/csrc/syrk_upper.cu",
     "chol_inv": "capital_tpu_torch/csrc/chol_inv.cu",
+    "getrf_leaf": "capital_tpu_torch/csrc/getrf_leaf.cu",
 }
-# main path runs: (n, precision); the first is the headline cell
+# cholinv main path runs: (n, precision); the first is the headline cell
 MAIN_RUNS = ((32768, "high"), (8192, "highest"))
+# LU main path runs: (n, nb, lookahead, right-hand sides); f32 'highest'
+LU_RUNS = ((32768, 2048, False, 0), (8192, 1024, True, 256))
+LU_TOL, LU_SOLVE_TOL, LEAF_TOL = 5e-4, 1e-3, 1e-6
 
 
 def smi() -> str:
@@ -235,7 +254,8 @@ def main_path(n: int, level: str, failures: list) -> dict:
     want = {"trmm_upper": 3 * inner, "syrk_upper": inner, "chol_inv": leaves,
             "trmm_upper_by_case": {"L": inner, "L,trans": inner, "R": inner,
                                    "R,trans": 0},
-            "trmm_dot": 0, "syrk_dot": 0, "chol_xla": 0}
+            "trmm_dot": 0, "syrk_dot": 0, "chol_xla": 0, "getrf_leaf": 0,
+            "leaf_plain": 0, "lu_library": 0}
     if got != want:
         failures.append(f"main path n={n}: launch counts {got} != {want}")
     inv = float(validate.inverse_residual(grid, r, ri, chunks=8, masked=True))
@@ -265,6 +285,135 @@ def main_path(n: int, level: str, failures: list) -> dict:
     return rec
 
 
+def leaf_phase(failures: list) -> list:
+    """getrf_leaf against its plain version on two strips of the LU path,
+    each a window of a workspace with the main path's row stride."""
+    from capital_tpu_torch.ops.cuda_getrf import getrf_leaf, getrf_leaf_plain
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    n, nb, ib = LU_RUNS[0][0], LU_RUNS[0][1], 128
+    rows = []
+    # the first leaf of panel 0, and the sixth leaf of panel 7
+    for mm in (n, n - 7 * nb - 5 * ib):
+        ws = torch.empty((mm, n), device=dev)
+        win = ws[:, :ib]
+        src = torch.randn((mm, ib), generator=gen, device=dev)
+
+        def restore():
+            win.copy_(src)
+
+        def k():
+            restore()
+            return getrf_leaf(win)
+
+        # the wrapper's time (launch + row gather by pj) without the
+        # copy that restores the input between calls
+        ms = events_ms(k, 5) - events_ms(restore, 5)
+        _, pj, piv = k()
+        plain_ms, (want, pj_p, piv_p) = once_ms(
+            lambda: getrf_leaf_plain(src.clone()))
+        lib_ms = events_ms(lambda: torch.linalg.lu_factor(src), 3)
+        rel, mae = compare(win, want)
+        same = torch.equal(pj, pj_p) and torch.equal(piv, piv_p)
+        b_ms, b_by = bound(mm * ib * ib, 2 * mm * ib * 4, PEAK_F32)
+        row = {"name": f"getrf_leaf[{mm}x{ib}]", "kernel": "getrf_leaf",
+               "case": None, "route": "cuda", "source": SOURCE["getrf_leaf"],
+               "replaces": REPLACES["getrf_leaf"], "precision": "highest",
+               "shape": [mm, ib], "grid_syncs": ib, "launches": None,
+               "max_abs_err": mae, "rel_err": rel, "pivots_equal": same,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": lib_ms}
+        rows.append(row)
+        print(f"[kernel] {row['name']}: pj/pivots equal={same} "
+              f"rel_err={rel:.3e} max_abs_err={mae:.3e} kernel_ms={ms:.3f} "
+              f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) grid syncs={ib}", flush=True)
+        if not same:
+            failures.append(f"{row['name']}: pj/pivots differ from the "
+                            "plain version")
+        if not rel <= LEAF_TOL:
+            failures.append(f"{row['name']}: rel_err {rel:.3e} > {LEAF_TOL}")
+        del ws, win, src, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def lu_path(n: int, nb: int, lookahead: bool, k_rhs: int,
+            failures: list) -> dict:
+    """lu.factor (and, with k_rhs, a refined solve) at f32 'highest'."""
+    from unittest import mock
+
+    from capital_tpu_torch import Grid
+    from capital_tpu_torch.algs import lu
+    from capital_tpu_torch.bench.lu import residual
+    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops.lapack import perm_from_pivots
+    from capital_tpu_torch.ops.precision import default_matmul_precision, dot
+
+    grid = Grid.square(c=1, d=1)
+    dev = grid.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((n, n), generator=gen, device=dev)
+    cfg = lu.Config(nb=nb)
+    env = {"CAPITAL_LU_LOOKAHEAD": "1" if lookahead else "0"}
+    with mock.patch.dict(os.environ, env), default_matmul_precision("highest"):
+        reset_counters()
+        secs, (w, perm, _) = once_ms(lambda: lu.factor(grid, a, cfg))
+        got = counters()
+        del w, perm
+        secs2, (w, perm, _) = once_ms(lambda: lu.factor(grid, a, cfg))
+        nbp = cfg.panel(grid, n)
+        leaf_launches = (n // nbp) * lu.leaves(nbp, lu.leaf_width(True))
+    best_ms = min(secs, secs2)
+    want = {k: (dict.fromkeys(v, 0) if isinstance(v, dict) else 0)
+            for k, v in got.items()}
+    want["getrf_leaf"] = leaf_launches
+    if got != want:
+        failures.append(f"LU n={n}: launch counts {got} != {want}")
+    is_perm = torch.equal(torch.sort(perm).values,
+                          torch.arange(n, dtype=perm.dtype, device=dev))
+    res = residual(grid, w, perm, a)
+    rec = {"n": n, "nb": nb, "lookahead": lookahead, "precision": "highest",
+           "ms": [secs, secs2], "gflops": (2 * n**3 / 3) / best_ms / 1e6,
+           "residual": res, "perm_is_permutation": is_perm,
+           "launches": got, "expected_getrf_leaf": leaf_launches}
+    if not is_perm:
+        failures.append(f"LU n={n}: perm is not a permutation")
+    if not res < LU_TOL:  # also fails on NaN
+        failures.append(f"LU n={n}: residual {res} not below {LU_TOL}")
+    if k_rhs:
+        b = torch.randn((n, k_rhs), generator=gen, device=dev)
+
+        def solve():
+            x = lu.solve_factored(grid, w, perm, b)
+            for _ in range(2):
+                x = x + lu.solve_factored(grid, w, perm, b - dot(a, x))
+            return x
+
+        with default_matmul_precision("highest"):
+            solve_ms, x = once_ms(solve)
+            sres = float(torch.linalg.norm(dot(a, x) - b)
+                         / torch.linalg.norm(b))
+        rec.update(solve_k=k_rhs, refine=2, solve_ms=solve_ms,
+                   solve_residual=sres)
+        if not sres < LU_SOLVE_TOL:
+            failures.append(f"LU n={n}: solve residual {sres} not below "
+                            f"{LU_SOLVE_TOL}")
+    del w, perm
+    torch.cuda.empty_cache()
+    once_ms(lambda: torch.linalg.lu_factor(a[:1024, :1024]))  # warm up
+    lib_ms, (lu_lib, piv_lib) = once_ms(lambda: torch.linalg.lu_factor(a))
+    with default_matmul_precision("highest"):
+        rec["library_residual"] = residual(
+            grid, lu_lib, perm_from_pivots(piv_lib - 1, n), a)
+    rec.update(library_ms=lib_ms, vs_library=lib_ms / best_ms)
+    del lu_lib, piv_lib, a
+    torch.cuda.empty_cache()
+    print(f"[lu] {json.dumps(rec)}", flush=True)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -284,19 +433,25 @@ def main() -> int:
     for level in ("highest", "high"):
         rows += kernel_phase(level, failures)
     torch.cuda.empty_cache()
+    rows += leaf_phase(failures)
     mains = [main_path(n, level, failures) for n, level in MAIN_RUNS]
+    lus = [lu_path(*run, failures) for run in LU_RUNS]
     for row in rows:
-        # launches: the main-path run at the row's precision
-        run = next(mp for mp in mains if mp["precision"] == row["precision"])
-        row["launches"] = (run["launches"]["trmm_upper_by_case"][row["case"]]
-                           if row["case"] else run["launches"][row["kernel"]])
-    # TRMM's R,trans case is not on cholinv's path (QDWH uses it): it is
-    # held against its plain version above and kept out of the path's list
-    path_rows = [r for r in rows if r["case"] != "R,trans"]
-    for row in path_rows:
-        if row["launches"] == 0:
+        # launches: the main-path run that runs the kernel (cholinv at the
+        # row's precision; the headline LU run for the leaf). TRMM's
+        # R,trans case is on no ported path yet (QDWH uses it): it is held
+        # against its plain version above and listed with its 0 launches
+        if row["kernel"] == "getrf_leaf":
+            row["launches"] = lus[0]["launches"]["getrf_leaf"]
+        else:
+            run = next(mp for mp in mains
+                       if mp["precision"] == row["precision"])
+            row["launches"] = (
+                run["launches"]["trmm_upper_by_case"][row["case"]]
+                if row["case"] else run["launches"][row["kernel"]])
+        if row["launches"] == 0 and row["case"] != "R,trans":
             failures.append(f"{row['name']} never launched on the main path")
-    result = {"card": card, "kernels": rows, "main": mains,
+    result = {"card": card, "kernels": rows, "main": mains, "lu": lus,
               "failures": failures}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -306,7 +461,7 @@ def main() -> int:
             print(f"FAIL: {msg}", file=sys.stderr)
         return 1
     print(card)
-    print(json.dumps({"kernels": path_rows}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
