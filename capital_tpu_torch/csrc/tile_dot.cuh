@@ -1,4 +1,5 @@
-// Device-side tile product shared by the TRMM, SYRK and leaf kernels.
+// Device-side tile product of the TRMM kernel, and the helpers (precision
+// codes, bf16 conversions and split, error strings) all kernels share.
 //
 // Counterpart of capital_tpu/ops/pallas_dot.py::tile_dot, the in-kernel
 // product helper of the TPU's triangle kernels. One CTA of 256 threads
@@ -35,9 +36,6 @@ enum Prec { PREC_HIGHEST = 0, PREC_HIGH = 1, PREC_DEFAULT = 2 };
 enum Keep { KEEP_ALL = 0, KEEP_UPPER = 1 /* row <= col */,
             KEEP_LOWER = 2 /* row >= col */ };
 
-// Contraction rows per first-level accumulator of the two-level sum
-// (32 row chunks of 512, capital_tpu/ops/pallas_syrk.py:65-68).
-constexpr int FOLD_ROWS = 32 * 512;
 constexpr int THREADS = 256;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -89,7 +87,7 @@ __device__ __forceinline__ void split_store(float x, __nv_bfloat16& hi,
 // Tensor-core tile: 128x128 output, K-slab 32, 8 warps of 32x64 each.
 constexpr int TC_BM = 128, TC_BN = 128, TC_BK = 32;
 
-template <typename T, int NPASS, bool FOLD, class Epi>
+template <typename T, int NPASS, class Epi>
 __device__ void tc_tile(const Operand<T>& A, const Operand<T>& B, int M,
                         int N, int K, int i0, int j0, int klo, int khi,
                         Epi epi) {
@@ -105,18 +103,10 @@ __device__ void tc_tile(const Operand<T>& A, const Operand<T>& B, int M,
   const int wm = warp % 4, wn = warp / 4;  // warp tile: rows wm*32, cols wn*64
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float>
-      acc2[FOLD ? 2 : 1][FOLD ? 4 : 1];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  if constexpr (FOLD) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc2[i][j], 0.f);
-  }
 
   for (int k0 = klo; k0 < khi; k0 += TC_BK) {
     __syncthreads();
@@ -171,19 +161,6 @@ __device__ void tc_tile(const Operand<T>& A, const Operand<T>& B, int M,
         for (int t = 0; t < part.num_elements; ++t)
           acc[i][j].x[t] += part.x[t];
       }
-    if constexpr (FOLD) {
-      if ((k0 + TC_BK - klo) % FOLD_ROWS == 0 && k0 + TC_BK < khi) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-#pragma unroll
-            for (int t = 0; t < acc[i][j].num_elements; ++t)
-              acc2[i][j].x[t] += acc[i][j].x[t];
-            wmma::fill_fragment(acc[i][j], 0.f);
-          }
-      }
-    }
   }
 
   // fragments go through a per-warp staging tile so each lane knows the
@@ -193,11 +170,6 @@ __device__ void tc_tile(const Operand<T>& A, const Operand<T>& B, int M,
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      if constexpr (FOLD) {
-#pragma unroll
-        for (int t = 0; t < acc[i][j].num_elements; ++t)
-          acc[i][j].x[t] = acc2[i][j].x[t] + acc[i][j].x[t];
-      }
       wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
       __syncwarp();
       for (int e = lane; e < 256; e += 32)
@@ -209,8 +181,7 @@ __device__ void tc_tile(const Operand<T>& A, const Operand<T>& B, int M,
 
 // FFMA tile: BM x BN output, K-slab BK, each thread a TM x TN micro-tile
 // at rows ty + r * (BM / TM) and cols tx + c * (BN / TN).
-template <typename T, int BM, int BN, int BK, int TM, int TN, bool FOLD,
-          class Epi>
+template <typename T, int BM, int BN, int BK, int TM, int TN, class Epi>
 __device__ void ffma_tile(const Operand<T>& A, const Operand<T>& B, int M,
                           int N, int K, int i0, int j0, int klo, int khi,
                           Epi epi) {
@@ -221,17 +192,10 @@ __device__ void ffma_tile(const Operand<T>& A, const Operand<T>& B, int M,
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
 
   float acc[TM][TN];
-  float acc2[FOLD ? TM : 1][FOLD ? TN : 1];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  if constexpr (FOLD) {
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc2[i][j] = 0.f;
-  }
 
   for (int k0 = klo; k0 < khi; k0 += BK) {
     __syncthreads();
@@ -260,40 +224,25 @@ __device__ void ffma_tile(const Operand<T>& A, const Operand<T>& B, int M,
 #pragma unroll
         for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
-    if constexpr (FOLD) {
-      if ((k0 + BK - klo) % FOLD_ROWS == 0 && k0 + BK < khi) {
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            acc2[i][j] += acc[i][j];
-            acc[i][j] = 0.f;
-          }
-      }
-    }
   }
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      float v = acc[i][j];
-      if constexpr (FOLD) v = acc2[i][j] + acc[i][j];
-      epi(i0 + ty + i * TY, j0 + tx + j * TX, v);
-    }
+    for (int j = 0; j < TN; ++j)
+      epi(i0 + ty + i * TY, j0 + tx + j * TX, acc[i][j]);
 }
 
 // Tile product at a runtime-chosen precision level.
-template <typename T, int PREC, bool FOLD, class Epi>
+template <typename T, int PREC, class Epi>
 __device__ __forceinline__ void tile_dot(const Operand<T>& A,
                                          const Operand<T>& B, int M, int N,
                                          int K, int i0, int j0, int klo,
                                          int khi, Epi epi) {
   if constexpr (PREC == PREC_HIGHEST)
-    ffma_tile<T, 128, 128, 16, 8, 8, FOLD>(A, B, M, N, K, i0, j0, klo, khi,
-                                           epi);
+    ffma_tile<T, 128, 128, 16, 8, 8>(A, B, M, N, K, i0, j0, klo, khi, epi);
   else
-    tc_tile<T, PREC == PREC_HIGH ? 3 : 1, FOLD>(A, B, M, N, K, i0, j0, klo,
-                                                khi, epi);
+    tc_tile<T, PREC == PREC_HIGH ? 3 : 1>(A, B, M, N, K, i0, j0, klo, khi,
+                                          epi);
 }
 
 }  // namespace capital

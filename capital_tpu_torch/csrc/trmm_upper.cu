@@ -50,7 +50,7 @@ __global__ void __launch_bounds__(THREADS) trmm_kernel(TrmmArgs<T> a) {
     if (r < a.M && c < a.N)
       a.C[(long long)r * a.ldc + c] = from_f32<T>(a.alpha * v);
   };
-  tile_dot<T, PREC, false>(a.A, a.B, a.M, a.N, a.K, i0, j0, klo, khi, epi);
+  tile_dot<T, PREC>(a.A, a.B, a.M, a.N, a.K, i0, j0, klo, khi, epi);
 }
 
 template <typename T>

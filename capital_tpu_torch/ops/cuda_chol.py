@@ -8,9 +8,9 @@ also builds E = R_kk^{-T}; the slab R[k, k:] = E @ M[k, k:]; the trailing
 update M[>k, >k] -= R[k, >k]^T R[k, >k]; the left-looking inverse
 Rinv[:k, k] = -(Rinv[:k, :k] R[:k, k]) E^T and Rinv_kk = E^T. All f32.
 
-On a CUDA tensor the hand-written kernels of `csrc/chol_inv.cu` run it
-(one call, several launches); on a CPU tensor `chol_inv_plain` repeats
-the same schedule on tensors.
+On a CUDA tensor one cooperative launch of the hand-written kernel in
+`csrc/chol_inv.cu` runs it and writes R and Rinv already masked; on a CPU
+tensor `chol_inv_plain` repeats the same schedule on tensors.
 """
 
 from __future__ import annotations
@@ -21,15 +21,17 @@ import torch
 
 from capital_tpu_torch.ops import _build
 
-_B = 128  # panel width
+_B = 128       # panel width
+MAX_N = 1024   # largest block; lapack.chol_inv sends larger to torch
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
 
 
 def chol_inv_cuda(a: torch.Tensor, lower: bool = False):
     """(R, Rinv) with A = R^T R, or (L, Linv) = (R^T, Rinv^T) when lower.
     n must be a multiple of 128 (matrix.symmetric pads SPD operands with
-    an identity diagonal so the padded block stays well-posed)."""
+    an identity diagonal so the padded block stays well-posed), and at
+    most 1024 on a CUDA tensor."""
     n = a.shape[-1]
     if a.ndim != 2 or a.shape[0] != n or n % _B:
         raise ValueError(f"chol_inv_cuda needs a square block with 128 | n, "
@@ -37,23 +39,29 @@ def chol_inv_cuda(a: torch.Tensor, lower: bool = False):
     out_dtype = a.dtype
     if not a.is_cuda:
         r, rinv = chol_inv_plain(a.float())
+        r, rinv = torch.triu(r), torch.triu(rinv)
     else:
+        if n > MAX_N:
+            raise ValueError(f"chol_inv kernel takes n <= {MAX_N}, got {n}")
         dev = a.device
-        m = torch.empty((n, n), dtype=torch.float32, device=dev)
-        m.copy_(a)
-        r = torch.zeros((n, n), dtype=torch.float32, device=dev)
-        rinv = torch.zeros((n, n), dtype=torch.float32, device=dev)
-        e = torch.empty((_B, _B), dtype=torch.float32, device=dev)
-        t = torch.empty((n, _B), dtype=torch.float32, device=dev)
+        a32 = a.float().contiguous()  # no copy for a contiguous f32 block
+        if a32.data_ptr() % 16:  # the kernel reads rows as float4
+            a32 = a32.clone()
+        # working copy M, E and T in one allocation
+        ws = torch.empty(n * n + _B * _B + n * _B, dtype=torch.float32,
+                         device=dev)
+        r = torch.empty((n, n), dtype=torch.float32, device=dev)
+        rinv = torch.empty((n, n), dtype=torch.float32, device=dev)
         fn = _build.function("chol_inv", "capital_chol_inv", _ARGTYPES)
+        base, f32 = ws.data_ptr(), 4
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
-            err = fn(m.data_ptr(), r.data_ptr(), rinv.data_ptr(),
-                     e.data_ptr(), t.data_ptr(), n, stream)
+            err = fn(a32.data_ptr(), base, r.data_ptr(), rinv.data_ptr(),
+                     base + n * n * f32, base + (n * n + _B * _B) * f32, n,
+                     stream)
         _build.check("chol_inv", err, "chol_inv launch")
         chol_inv_cuda.launches += 1
-    r = torch.triu(r).to(out_dtype)
-    rinv = torch.triu(rinv).to(out_dtype)
+    r, rinv = r.to(out_dtype), rinv.to(out_dtype)
     if lower:
         return r.T, rinv.T
     return r, rinv

@@ -1,12 +1,19 @@
 """Triangle-aware Gram kernel G = A^T A from upper tiles only (counterpart
 of capital_tpu/ops/pallas_syrk.py::syrk_upper).
 
-On a CUDA tensor `syrk_upper` launches the hand-written kernel
+On a CUDA tensor `syrk_upper` launches the hand-written kernels
 (`csrc/syrk_upper.cu`); on a CPU tensor it runs `syrk_upper_plain`, which
-repeats its schedule on tensors: upper output tiles, contraction in row
+repeats their schedule on tensors: upper output tiles, contraction in row
 chunks of `mc`, the running sum folded into a second accumulator every 32
 chunks (32 x 512 rows on the card, as on the TPU), and each entry with
 row <= col mirrored below the diagonal, so G is bitwise symmetric.
+
+At 'high' / 'default' the kernel first packs A once into a K-major bf16
+copy (`split_pack_plain` is its plain version): hi, and at 'high' lo,
+each n_pad x m_pad, so the wrapper allocates m_pad * n_pad * 2 bytes of
+scratch a pass (m * n * 4 bytes at 'high'). The tensor cores then sum each
+promotion interval of `PROMOTION_ROWS` contraction rows in a fresh
+accumulator that is added to the running f32 sum.
 """
 
 from __future__ import annotations
@@ -18,15 +25,40 @@ import torch
 from capital_tpu_torch.ops import _build
 from capital_tpu_torch.ops.cuda_dot import tile_dot_plain
 from capital_tpu_torch.ops.cuda_trmm import _PREC_CODE, level_for, window
-from capital_tpu_torch.ops.precision import HIGHEST
+from capital_tpu_torch.ops.precision import HIGH, HIGHEST, split_f32
 
 _T = 128    # the kernel's output tile side
+_BK = 64    # the tensor-core kernel's contraction rows per stage
 _MC = 512   # row chunk; the fold fires every _FOLD chunks
 _FOLD = 32
+# contraction rows per tensor-core promotion interval (32, 64 or 128): the
+# measured error of each at 16384 deep is in PERF.md
+PROMOTION_ROWS = 128
 
 _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p]
+
+
+def split_shape(m: int, n: int) -> tuple[int, int]:
+    """(n_pad, m_pad) of the packed copy: n to the tile, m to the stage."""
+    return -(-n // _T) * _T, -(-m // _BK) * _BK
+
+
+def split_pack_plain(a: torch.Tensor, level: str):
+    """The split pass on tensors: (hi, lo) bf16, each (n_pad, m_pad) with
+    hi[c, k] from A[k, c] and zeros in the padding. At 'high' hi is
+    `split_f32`'s (RNE on the bit pattern) and lo = bf16(x - hi); otherwise
+    hi = bf16(x) and lo is None."""
+    m, n = a.shape
+    n_pad, m_pad = split_shape(m, n)
+    x = torch.zeros((n_pad, m_pad), dtype=torch.float32, device=a.device)
+    x[:n, :m] = a.T.float()
+    if level != HIGH or a.dtype == torch.bfloat16:
+        return x.to(torch.bfloat16), None
+    hi, lo = split_f32(x)
+    return hi.to(torch.bfloat16), lo.to(torch.bfloat16)
 
 
 def syrk_upper(a: torch.Tensor, out_dtype=torch.float32, *,
@@ -44,13 +76,19 @@ def syrk_upper(a: torch.Tensor, out_dtype=torch.float32, *,
         raise ValueError("syrk_upper kernel needs a unit column stride")
     m, n = av.shape
     g = torch.empty((n, n), dtype=out_dtype, device=av.device)
+    scratch = None
+    if level != HIGHEST:
+        npass = 2 if level == HIGH and av.dtype == torch.float32 else 1
+        scratch = torch.empty((npass, *split_shape(m, n)),
+                              dtype=torch.bfloat16, device=av.device)
     fn = _build.function("syrk_upper", "capital_syrk_upper", _ARGTYPES)
     with torch.cuda.device(av.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(int(av.dtype == torch.bfloat16),
                  int(out_dtype == torch.bfloat16), _PREC_CODE[level],
                  av.data_ptr(), av.stride(0), g.data_ptr(), g.stride(0),
-                 m, n, stream)
+                 m, n, None if scratch is None else scratch.data_ptr(),
+                 PROMOTION_ROWS, stream)
     _build.check("syrk_upper", err, "syrk_upper launch")
     syrk_upper.launches += 1
     return g

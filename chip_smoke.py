@@ -9,11 +9,17 @@
    the same inputs at the main paths' shapes. Times each kernel, its plain
    version, one library call computing the same function (never called
    by the port) and the card's bound for the work.
-   - at 'highest' and 'high': TRMM in all four cases on a 16384 window,
-     SYRK on a 16384 x 16384 window, the fused Cholesky leaf at n = 512.
-     Tolerance: relative Frobenius 1e-5 for each output (the leaf's R and
-     Rinv apart), as the kernel and the plain version sum in different
-     orders;
+   - at 'highest' and 'high': TRMM in all four cases on a 16384 window;
+     SYRK on a 16384 x 16384 window, a ragged 2995 x 1000 window at an
+     unaligned offset and a 512 x 512 window (the path's smallest), G
+     bitwise symmetric each time; at 'high' also each tensor-core
+     promotion interval (32, 64, 128 rows) at 16384 deep, a bf16-in /
+     bf16-out SYRK (4096^2, integer-valued so every summation order is
+     exact: equal to the plain version bit for bit) and the fused
+     Cholesky leaf at n = 128, 256, 512, 1024 with the kernels it runs
+     per call (torch.profiler). Tolerance: relative Frobenius 1e-5 for
+     each output (the leaf's R and Rinv apart), as the kernel and the
+     plain version sum in different orders;
    - the LU panel leaf (getrf_leaf) on two strips the LU path runs: the
      tallest, 32768 x 128, and a ragged 17792 x 128, each a window of a
      workspace with row stride 32768. pj and pivots must be identical and
@@ -68,6 +74,7 @@ SOURCE = {
 }
 # cholinv main path runs: (n, precision); the first is the headline cell
 MAIN_RUNS = ((32768, "high"), (8192, "highest"))
+LEAF_NS = (128, 256, 512, 1024)  # the Cholesky leaf's block sizes
 # LU main path runs: (n, nb, lookahead, right-hand sides); f32 'highest'
 LU_RUNS = ((32768, 2048, False, 0), (8192, 1024, True, 256))
 LU_TOL, LU_SOLVE_TOL, LEAF_TOL = 5e-4, 1e-3, 1e-6
@@ -131,7 +138,9 @@ def tree(n: int, bc: int, split: int = 1):
 
 
 def kernel_phase(level: str, failures: list) -> list:
-    from capital_tpu_torch.ops.cuda_chol import chol_inv_cuda, chol_inv_plain
+    from unittest import mock
+
+    from capital_tpu_torch.ops import cuda_syrk
     from capital_tpu_torch.ops.cuda_syrk import syrk_upper, syrk_upper_plain
     from capital_tpu_torch.ops.cuda_trmm import trmm_upper, trmm_upper_plain
 
@@ -142,7 +151,7 @@ def kernel_phase(level: str, failures: list) -> list:
     rows = []
 
     def add(name, case, shape, got, plain_ms, want, ms, lib_ms, ops, nbytes,
-            peak_):
+            peak_, precision=level):
         """got/want: a tensor, or a tuple of outputs each held to TOL on
         its own (so a small output is not hidden by a large one)."""
         if isinstance(got, torch.Tensor):
@@ -151,9 +160,9 @@ def kernel_phase(level: str, failures: list) -> list:
         rel, mae = max(e[0] for e in errs), max(e[1] for e in errs)
         b_ms, b_by = bound(ops, nbytes, peak_)
         label = name if case is None else f"{name}[{case}]"
-        row = {"name": f"{label}@{level}", "kernel": name, "case": case,
+        row = {"name": f"{label}@{precision}", "kernel": name, "case": case,
                "route": "cuda", "source": SOURCE[name],
-               "replaces": REPLACES[name], "precision": level,
+               "replaces": REPLACES[name], "precision": precision,
                "shape": shape, "launches": None, "max_abs_err": mae,
                "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
@@ -164,6 +173,7 @@ def kernel_phase(level: str, failures: list) -> list:
               f"bound_ms={b_ms:.3f} ({b_by})", flush=True)
         if not rel <= TOL:
             failures.append(f"{row['name']}: rel_err {rel:.3e} > {TOL}")
+        return row
 
     # TRMM: U is the top-left 16384 block, B the 16384 x 16384 window at
     # column offset 16384 of a 16384 x 32768 workspace (cholinv's shapes)
@@ -195,42 +205,122 @@ def kernel_phase(level: str, failures: list) -> list:
         del got, want
     del u
 
-    # SYRK: Gram of the same 16384 x 16384 window (the top-level Schur)
-    def ks():
-        return syrk_upper(work, a_window=bw, matmul_precision=level)
+    # SYRK on the same 16384 x 16384 window (the top-level Schur), a
+    # ragged window at an unaligned offset (n = 1000 is no multiple of 128,
+    # m = 2995 none of 512; the FFMA kernel's edge path), and 512^2, the
+    # main path's smallest call. G must be bitwise symmetric everywhere
+    syrk_cases = ((None, bw), ("ragged", (5, 3, 2995, 1000)),
+                  ("512", (0, n, 512, 512)))
+    for case, win in syrk_cases:
+        r0, c0, h, w = win
+        view = work[r0:r0 + h, c0:c0 + w]
 
-    ms = events_ms(ks, 3)
-    got = ks()
-    sym = bool(torch.equal(got, got.T))
-    if not sym:
-        failures.append(f"syrk_upper @{level}: G is not bitwise symmetric")
-    plain_ms, want = once_ms(lambda: syrk_upper_plain(bv, prec=level))
-    lib_ms = events_ms(lambda: torch.matmul(bv.T, bv), 2)
-    add("syrk_upper", None, [n, m], got, plain_ms, want, ms, lib_ms,
-        passes * m * n * (n + 1), 4 * (m * n + n * n), peak)
-    del got, want, work, bv
+        def ks(win=win):
+            return syrk_upper(work, a_window=win, matmul_precision=level)
 
-    # leaf: one 512 SPD block (all f32 at every level). A Gram matrix plus
-    # a modest shift (condition ~5), so R and Rinv both carry off-diagonal
-    # weight; each is held to TOL on its own
-    nl = 512
-    x = torch.rand((nl, nl), generator=gen, device=dev) - 0.5
-    g = x @ x.T
-    a = (g + g.T) * 0.5 + (nl / 12) * torch.eye(nl, device=dev)
-    ms = events_ms(lambda: chol_inv_cuda(a), 20)
-    got_r, got_ri = chol_inv_cuda(a)
-    plain_ms, (pr, pri) = once_ms(lambda: chol_inv_plain(a))
-    eye = torch.eye(nl, device=dev)
+        ms = events_ms(ks, 3 if case is None else 20)
+        got = ks()
+        check_symmetric(got, f"syrk_upper[{case}]@{level}", failures)
+        plain_ms, want = once_ms(lambda: syrk_upper_plain(view, prec=level))
+        lib_ms = events_ms(lambda: torch.matmul(view.T, view),
+                           2 if case is None else 20)
+        row = add("syrk_upper", case, [h, w], got, plain_ms, want, ms, lib_ms,
+                  passes * h * w * (w + 1), 4 * (h * w + w * w), peak)
+        if case is None and level == "high":
+            # the promotion interval: error against the plain version and
+            # time at 16384 deep for each choice
+            row["promotion_intervals"] = {}
+            for promo in (32, 64, 128):
+                with mock.patch.object(cuda_syrk, "PROMOTION_ROWS", promo):
+                    pms = events_ms(ks, 3)
+                    prel, pmae = compare(ks(), want)
+                row["promotion_intervals"][promo] = {
+                    "ms": pms, "rel_err": prel, "max_abs_err": pmae}
+                print(f"[kernel] syrk_upper promotion interval {promo}: "
+                      f"ms={pms:.3f} rel_err={prel:.3e} "
+                      f"max_abs_err={pmae:.3e}", flush=True)
+        del got, want
+    del work, bv
 
-    def lib_leaf():
-        lo = torch.linalg.cholesky(a)
-        return torch.linalg.solve_triangular(lo, eye, upper=False)
-
-    lib_ms = events_ms(lib_leaf, 20)
-    add("chol_inv", None, [nl, nl], (got_r, got_ri), plain_ms,
-        (torch.triu(pr), torch.triu(pri)), ms, lib_ms, 2 * nl**3 / 3,
-        4 * 3 * nl * nl, PEAK_F32)
+    if level == "high":
+        bf16_syrk(gen, failures, add)
+        leaf_rows(gen, add)
     return rows
+
+
+def check_symmetric(g: torch.Tensor, what: str, failures: list) -> None:
+    if not torch.equal(g, g.T):
+        failures.append(f"{what}: G is not bitwise symmetric")
+
+
+def bf16_syrk(gen, failures: list, add) -> None:
+    """bf16 in, bf16 out at 'default' on integer-valued data: every product
+    and partial sum is exact in f32 whatever the order, so the output's one
+    rounding to bf16 must match the plain version's bit for bit."""
+    from capital_tpu_torch.ops.cuda_syrk import syrk_upper, syrk_upper_plain
+
+    m = n = 4096
+    a = torch.randint(-8, 9, (m, n), generator=gen, device=gen.device,
+                      dtype=torch.float32).bfloat16()
+
+    def k():
+        return syrk_upper(a, out_dtype=torch.bfloat16)
+
+    ms = events_ms(k, 10)
+    got = k()
+    check_symmetric(got, "syrk_upper[bf16]@default", failures)
+    plain_ms, want = once_ms(lambda: syrk_upper_plain(a, torch.bfloat16))
+    lib_ms = events_ms(lambda: torch.matmul(a.T, a), 10)
+    if not torch.equal(got, want):
+        failures.append("syrk_upper[bf16]: differs from the plain version")
+    add("syrk_upper", "bf16", [m, n], got.float(), plain_ms, want.float(), ms,
+        lib_ms, m * n * (n + 1), 2 * (m * n + n * n), PEAK_BF16,
+        precision="default")
+
+
+def device_launches(fn) -> int:
+    """Kernels the card runs for one call of fn (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_time_total > 0 and not e.key.startswith("Memcpy"))
+
+
+def leaf_rows(gen, add) -> None:
+    """The Cholesky leaf at every n the dispatch gate lets in that the
+    main paths use or could (128 ... 1024). A Gram matrix plus a modest
+    shift (condition ~5), so R and Rinv both carry off-diagonal weight;
+    each is held to TOL on its own."""
+    from capital_tpu_torch.ops.cuda_chol import chol_inv_cuda, chol_inv_plain
+
+    dev = gen.device
+    for nl in LEAF_NS:
+        x = torch.rand((nl, nl), generator=gen, device=dev) - 0.5
+        g = x @ x.T
+        a = (g + g.T) * 0.5 + (nl / 12) * torch.eye(nl, device=dev)
+        ms = events_ms(lambda: chol_inv_cuda(a), 50)
+        got_r, got_ri = chol_inv_cuda(a)
+        plain_ms, (pr, pri) = once_ms(lambda: chol_inv_plain(a))
+        eye = torch.eye(nl, device=dev)
+
+        def lib_leaf():
+            lo = torch.linalg.cholesky(a)
+            return torch.linalg.solve_triangular(lo, eye, upper=False)
+
+        lib_ms = events_ms(lib_leaf, 50)
+        row = add("chol_inv", f"n={nl}", [nl, nl], (got_r, got_ri), plain_ms,
+                  (torch.triu(pr), torch.triu(pri)), ms, lib_ms,
+                  2 * nl**3 / 3, 4 * 3 * nl * nl, PEAK_F32,
+                  precision="f32")
+        row["device_launches_per_call"] = device_launches(
+            lambda: chol_inv_cuda(a))
+        print(f"[kernel] chol_inv n={nl}: device launches per call "
+              f"{row['device_launches_per_call']}", flush=True)
 
 
 def main_path(n: int, level: str, failures: list) -> dict:
@@ -316,6 +406,7 @@ def leaf_phase(failures: list) -> list:
         lib_ms = events_ms(lambda: torch.linalg.lu_factor(src), 3)
         rel, mae = compare(win, want)
         same = torch.equal(pj, pj_p) and torch.equal(piv, piv_p)
+        launches = device_launches(k)
         b_ms, b_by = bound(mm * ib * ib, 2 * mm * ib * 4, PEAK_F32)
         row = {"name": f"getrf_leaf[{mm}x{ib}]", "kernel": "getrf_leaf",
                "case": None, "route": "cuda", "source": SOURCE["getrf_leaf"],
@@ -323,12 +414,14 @@ def leaf_phase(failures: list) -> list:
                "shape": [mm, ib], "grid_syncs": ib, "launches": None,
                "max_abs_err": mae, "rel_err": rel, "pivots_equal": same,
                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-               "bound_by": b_by, "library_ms": lib_ms}
+               "bound_by": b_by, "library_ms": lib_ms,
+               "device_launches_per_call": launches}
         rows.append(row)
         print(f"[kernel] {row['name']}: pj/pivots equal={same} "
               f"rel_err={rel:.3e} max_abs_err={mae:.3e} kernel_ms={ms:.3f} "
               f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
-              f"bound_ms={b_ms:.4f} ({b_by}) grid syncs={ib}", flush=True)
+              f"bound_ms={b_ms:.4f} ({b_by}) grid syncs={ib} "
+              f"device launches per call={launches}", flush=True)
         if not same:
             failures.append(f"{row['name']}: pj/pivots differ from the "
                             "plain version")
@@ -438,17 +531,19 @@ def main() -> int:
     lus = [lu_path(*run, failures) for run in LU_RUNS]
     for row in rows:
         # launches: the main-path run that runs the kernel (cholinv at the
-        # row's precision; the headline LU run for the leaf). TRMM's
-        # R,trans case is on no ported path yet (QDWH uses it): it is held
-        # against its plain version above and listed with its 0 launches
+        # row's precision, the headline run for the f32 leaf and bf16 SYRK;
+        # the headline LU run for the LU leaf). TRMM's R,trans case is on
+        # no ported path yet (QDWH uses it): it is held against its plain
+        # version above and listed with its 0 launches
         if row["kernel"] == "getrf_leaf":
             row["launches"] = lus[0]["launches"]["getrf_leaf"]
         else:
-            run = next(mp for mp in mains
-                       if mp["precision"] == row["precision"])
-            row["launches"] = (
-                run["launches"]["trmm_upper_by_case"][row["case"]]
-                if row["case"] else run["launches"][row["kernel"]])
+            got = next((mp for mp in mains
+                        if mp["precision"] == row["precision"]),
+                       mains[0])["launches"]
+            row["launches"] = (got["trmm_upper_by_case"][row["case"]]
+                               if row["kernel"] == "trmm_upper"
+                               else got[row["kernel"]])
         if row["launches"] == 0 and row["case"] != "R,trans":
             failures.append(f"{row['name']} never launched on the main path")
     result = {"card": card, "kernels": rows, "main": mains, "lu": lus,

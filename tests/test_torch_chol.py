@@ -40,7 +40,7 @@ def _quality(a, r, rinv):
 
 
 @pytest.mark.parametrize("lower", [False, True])
-@pytest.mark.parametrize("n", [128, 256])
+@pytest.mark.parametrize("n", [128, 256, 512])
 def test_leaf_plain_matches_jax_kernel(n, lower):
     a = _spd(n, n)
     rj, rij = (np.asarray(x) for x in chol_inv_pallas(

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from capital_tpu.ops.pallas_dot import _split_f32
 from capital_tpu.ops.pallas_syrk import syrk_upper as syrk_jax
 from capital_tpu_torch.ops import cuda_syrk, cuda_trmm
 
@@ -90,3 +91,56 @@ def test_syrk_ragged_and_bf16():
     assert gb.dtype == torch.bfloat16 and torch.equal(gb, gb.T)
     ref = ab.double().T @ ab.double()
     assert _rel(gb.float().numpy(), ref.numpy()) < 1e-2
+
+
+def _split_cases(shape):
+    """Values whose low 16 bits sit on a rounding tie (with an even and an
+    odd bit 16), +-0, the largest finite value, subnormals, and random
+    values of both signs."""
+    bits = np.array([0x3F808000, 0x3F818000, 0xBF808000, 0xBF818000,
+                     0x00000000, 0x80000000, 0x7F7FFFFF, 0xFF7FFFFF,
+                     0x00000001, 0x80008000, 0x3F800001, 0x3F807FFF],
+                    dtype=np.uint32)
+    x = _data(4, shape)
+    x.flat[:bits.size] = bits.view(np.float32)
+    return x
+
+
+@pytest.mark.parametrize("level", ["high", "default"])
+@pytest.mark.parametrize("shape", [(64, 128), (100, 70)])
+def test_split_pack_matches_jax_split_f32(shape, level):
+    """The split pass's plain version: hi[c, k] is _split_f32's hi of
+    A[k, c] bit for bit (RNE on the bit pattern), lo at 'high' is
+    bf16(x - hi), and the padding up to (128, 64) multiples is zero."""
+    x = _split_cases(shape)
+    hi, lo = cuda_syrk.split_pack_plain(torch.from_numpy(x), level)
+    m, n = shape
+    n_pad, m_pad = cuda_syrk.split_shape(m, n)
+    assert hi.shape == (n_pad, m_pad) and hi.dtype == torch.bfloat16
+    want_hi, want_lo = (np.asarray(v) for v in _split_f32(jnp.asarray(x)))
+    got_hi = hi[:n, :m].float().numpy().T
+    assert np.array_equal(got_hi.view(np.uint32), want_hi.view(np.uint32))
+    assert not hi[n:].float().any() and not hi[:, m:].float().any()
+    if level == "default":
+        assert lo is None
+        return
+    # lo = x - hi in IEEE f32; XLA's CPU flushes the subnormal differences
+    # to zero, the card and torch keep them (one entry here)
+    sub = np.abs(x - want_hi) < np.finfo(np.float32).tiny
+    assert np.array_equal(want_lo[~sub], (x - want_hi)[~sub])
+    want_lo = torch.from_numpy(x - want_hi).bfloat16().float().numpy()
+    got_lo = lo[:n, :m].float().numpy().T
+    assert np.array_equal(got_lo.view(np.uint32), want_lo.view(np.uint32))
+    assert not lo[n:].float().any() and not lo[:, m:].float().any()
+
+
+@pytest.mark.parametrize("level", ["highest", "high", "default"])
+@pytest.mark.parametrize("shape,aw", [((640, 512), (128, 128, 384, 256)),
+                                      ((700, 333), (3, 5, 601, 201))])
+def test_syrk_wrapper_cpu_route(shape, aw, level):
+    """On a CPU tensor the wrapper is the plain version on the window it
+    reads in place, at every level, on an aligned and a ragged window."""
+    big = torch.from_numpy(_data(5, shape))
+    got = cuda_syrk.syrk_upper(big, a_window=aw, matmul_precision=level)
+    want = cuda_syrk.syrk_upper_plain(cuda_trmm.window(big, aw), prec=level)
+    assert torch.equal(got, want) and torch.equal(got, got.T)
