@@ -43,11 +43,9 @@
 //   sees the same sequence of rank-1 updates as
 //   ops/cuda_chol.py::_micro_chol_inv.
 //
-// Measured (chip_smoke.py and bench/leaf_parts.cu, NVIDIA H100 80GB HBM3,
-// 700 W): see PERF.md section 6 -- n = 512 in ~0.22 ms against the first
-// version's 1.55 ms and cholesky + solve_triangular's ~0.45 ms, one launch
-// a call; the micro-factorization ~32 us a panel (310 us before), a
-// 64x64x128 product tile ~6-7 us on one SM, a grid sync ~1.1 us.
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): see PERF.md
+// section 6 -- n = 512 in ~0.21 ms against the first version's 1.55 ms
+// and cholesky + solve_triangular's ~0.41 ms, one launch a call.
 #include <algorithm>
 #include <cooperative_groups.h>
 

@@ -11,9 +11,10 @@
 // kernel folds every 32 chunks of 512 (pallas_syrk.py:65-68). This is an
 // accuracy property, not a speed trick: it bounds the sequential-add error
 // at ~(m/FOLD_ROWS + FOLD_ROWS/32) eps instead of m/32 eps. A contraction
-// of at most FOLD_ROWS rows never folds, so it runs an instantiation
-// without the second accumulator (the registers it frees keep two CTAs on
-// an SM at 'highest').
+// of at most FOLD_ROWS rows never folds. At 'highest' it runs an
+// instantiation without the second accumulator (the registers it frees keep
+// two CTAs on an SM); the wgmma kernel always holds it (three 64-float
+// accumulators fit the registers setmaxnreg gives a consumer thread).
 //
 // Each tile is written with its mirror. Only entries with row <= col are
 // written from their own sum; the entry below the diagonal is the same
@@ -44,7 +45,7 @@
 //      At 'high' three wgmma per k16 step: hi*hi, hi*lo, lo*hi.
 //   3. The tensor cores' own f32 accumulation is not IEEE round-to-nearest
 //      (measured on the card: a 17000-deep chain drifts ~1e-4 from an f32
-//      sum). So each promotion interval (32, 64 or 128 contraction rows)
+//      sum). So each promotion interval of PROMO_ROWS contraction rows
 //      goes into a freshly zeroed accumulator (scale-d = 0 on its first
 //      wgmma) and is then added to the running f32 sum with ordinary adds.
 // 'highest' (f32 FFMA, never TF32): a 128x128 tile per CTA, an 8x8 register
@@ -52,10 +53,10 @@
 // cp.async (16-byte) pipeline; bound and triangle tests only on edge tiles
 // (4-byte cp.async with zero fill).
 //
-// Promotion interval: 128 rows. Against the plain version at 16384 deep
-// (relative Frobenius / max abs): 32 rows 5.03e-7 / 2.69e-3 in 26.7 ms,
-// 64 rows 4.20e-7 / 1.95e-3 in 26.1 ms, 128 rows 4.42e-7 / 1.71e-3 in
-// 24.3 ms.
+// Promotion interval: 128 rows, chosen from one measurement of each
+// candidate against the plain version at 16384 deep (relative Frobenius /
+// max abs): 32 rows 5.03e-7 / 2.69e-3 in 26.7 ms, 64 rows 4.20e-7 /
+// 1.95e-3 in 26.1 ms, 128 rows 4.42e-7 / 1.71e-3 in 24.3 ms (PERF.md).
 //
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W), 16384^2 window:
 // 'high' 25.4 ms (bound 13.3 ms, 52 %; Bt @ B 161.9 ms; the first version
@@ -253,6 +254,8 @@ syrk_ffma_kernel(const float* a, long long lda, TO* g, long long ldg, int m,
 constexpr int W_BK = 64;  // contraction rows per stage: one 128-byte row
 constexpr int W_THREADS = 384;  // consumer warpgroups 0-1, producer 2
 constexpr int TILE_BYTES = T * W_BK * 2;  // one 128 x 64 bf16 operand tile
+constexpr int PROMO_ROWS = 128;  // contraction rows per promotion interval
+constexpr int PSTEPS = PROMO_ROWS / 16;  // k16 steps per promotion interval
 
 __host__ __device__ constexpr int w_stages(int npass) {
   return npass == 3 ? 3 : 4;
@@ -267,7 +270,7 @@ constexpr size_t w_smem(int npass) {
 static_assert(STAGE_BYTES <= 2 * 4 * TILE_BYTES, "staging fits the ring");
 
 // split: hi[c][k] (and lo[c][k]) of A[k][c], zero-padded to n_pad x m_pad
-template <typename TI, int NPASS>
+template <typename TI, bool LO>
 __global__ void split_kernel(const TI* a, long long lda, int m, int n,
                              __nv_bfloat16* hi, __nv_bfloat16* lo,
                              int m_pad) {
@@ -285,7 +288,7 @@ __global__ void split_kernel(const TI* a, long long lda, int m, int n,
   for (int q = 0; q < 32; q += 8) {
     const float x = tile[tx][ty + q];
     const long long o = (long long)(c0 + ty + q) * m_pad + k0 + tx;
-    if (NPASS == 3) {
+    if (LO) {
       const float h = bf16_hi(x);
       hi[o] = __float2bfloat16_rn(h);  // exact: h is on the bf16 grid
       lo[o] = __float2bfloat16_rn(x - h);
@@ -380,12 +383,11 @@ __device__ __forceinline__ void wgmma_64x128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-template <int NPASS, typename TO, bool FOLD>
+template <int NPASS, typename TO>
 __global__ void __launch_bounds__(W_THREADS, 1)
 syrk_wgmma_kernel(const __grid_constant__ CUtensorMap hi_map,
                   const __grid_constant__ CUtensorMap lo_map, TO* g,
-                  long long ldg, int m, int n, int nt, int kt_n,
-                  int psteps) {
+                  long long ldg, int m, int n, int nt, int kt_n) {
   constexpr int S = w_stages(NPASS), OPS = w_ops(NPASS);
   extern __shared__ uint8_t wsm_raw[];
   uint8_t* base = wsm_raw + ((1024 - (smem_u32(wsm_raw) & 1023)) & 1023);
@@ -427,13 +429,9 @@ syrk_wgmma_kernel(const __grid_constant__ CUtensorMap hi_map,
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int wg = threadIdx.x / 128;  // this warpgroup's 64 rows
-    float part[64], run[64], fold[FOLD ? 64 : 1];
+    float part[64], run[64], fold[64];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) part[i] = run[i] = 0.f;
-    if constexpr (FOLD) {
-#pragma unroll
-      for (int i = 0; i < 64; ++i) fold[i] = 0.f;
-    }
+    for (int i = 0; i < 64; ++i) part[i] = run[i] = fold[i] = 0.f;
     const int steps = kt_n * (W_BK / 16);
     for (int kt = 0; kt < kt_n; ++kt) {
       const int s = kt % S;
@@ -448,13 +446,13 @@ syrk_wgmma_kernel(const __grid_constant__ CUtensorMap hi_map,
         const uint64_t o = 2 * kk;  // 32 bytes along K, in 16-byte units
         reg_fence(part);
         wg_fence();
-        wgmma_64x128(part, dah + o, dbh + o, step % psteps != 0);
+        wgmma_64x128(part, dah + o, dbh + o, step % PSTEPS != 0);
         if (NPASS == 3) {
           wgmma_64x128(part, dah + o, dbl + o, 1);
           wgmma_64x128(part, dal + o, dbh + o, 1);
         }
         wg_commit();
-        if ((step + 1) % psteps == 0 || step + 1 == steps) {
+        if ((step + 1) % PSTEPS == 0 || step + 1 == steps) {
           wg_wait0();
           reg_fence(part);
 #pragma unroll
@@ -464,14 +462,12 @@ syrk_wgmma_kernel(const __grid_constant__ CUtensorMap hi_map,
       wg_wait0();  // every wgmma reading stage s is done: release it
       reg_fence(part);
       if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
-      if constexpr (FOLD) {
-        const int k_end = (kt + 1) * W_BK;
-        if (k_end % FOLD_ROWS == 0 && k_end < m) {
+      const int k_end = (kt + 1) * W_BK;
+      if (k_end % FOLD_ROWS == 0 && k_end < m) {
 #pragma unroll
-          for (int i = 0; i < 64; ++i) {
-            fold[i] += run[i];
-            run[i] = 0.f;
-          }
+        for (int i = 0; i < 64; ++i) {
+          fold[i] += run[i];
+          run[i] = 0.f;
         }
       }
     }
@@ -484,9 +480,7 @@ syrk_wgmma_kernel(const __grid_constant__ CUtensorMap hi_map,
     for (int i = 0; i < 64; ++i) {
       const int r = wg * 64 + warp * 16 + lane / 4 + 8 * ((i >> 1) & 1);
       const int c = (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
-      float v = run[i];
-      if constexpr (FOLD) v = fold[i] + run[i];
-      st[r * ST + c] = v;
+      st[r * ST + c] = fold[i] + run[i];
     }
     asm volatile("bar.sync 1, 256;\n" ::: "memory");
     store_mirrored<TO>(st, g, ldg, n, i0, j0, threadIdx.x, 2 * 128);
@@ -546,87 +540,95 @@ int launch_ffma(const float* a, long long lda, TO* g, long long ldg, int m,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NPASS, typename TO, bool FOLD>
+template <int NPASS, typename TO>
 int launch_wgmma(const CUtensorMap& hi, const CUtensorMap& lo, TO* g,
-                 long long ldg, int m, int n, int nt, int kt_n, int psteps,
+                 long long ldg, int m, int n, int nt, int kt_n,
                  cudaStream_t s) {
-  auto k = syrk_wgmma_kernel<NPASS, TO, FOLD>;
+  auto k = syrk_wgmma_kernel<NPASS, TO>;
   const size_t bytes = w_smem(NPASS);
   cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   k<<<nt * (nt + 1) / 2, W_THREADS, bytes, s>>>(hi, lo, g, ldg, m, n, nt,
-                                                 kt_n, psteps);
+                                                 kt_n);
   return static_cast<int>(cudaGetLastError());
 }
 
+// n_pad x m_pad: n to the output tile, m to the stage
+int n_padded(int n) { return (n + T - 1) / T * T; }
+int m_padded(int m) { return (m + W_BK - 1) / W_BK * W_BK; }
+
 template <typename TO>
 int run(int bf16_in, int prec, const void* a, long long lda, TO* g,
-        long long ldg, int m, int n, void* scratch, int promo,
-        cudaStream_t s) {
+        long long ldg, int m, int n, void* scratch, cudaStream_t s) {
   const int nt = (n + T - 1) / T;
-  const bool fold = m > FOLD_ROWS;
   if (prec == PREC_HIGHEST) {
     if (bf16_in) return static_cast<int>(cudaErrorInvalidValue);
     const float* af = static_cast<const float*>(a);
-    return fold ? launch_ffma<TO, true>(af, lda, g, ldg, m, n, nt, s)
-                : launch_ffma<TO, false>(af, lda, g, ldg, m, n, nt, s);
+    return m > FOLD_ROWS
+               ? launch_ffma<TO, true>(af, lda, g, ldg, m, n, nt, s)
+               : launch_ffma<TO, false>(af, lda, g, ldg, m, n, nt, s);
   }
   if (prec != PREC_HIGH && prec != PREC_DEFAULT)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (promo != 32 && promo != 64 && promo != 128)
-    return static_cast<int>(cudaErrorInvalidValue);
   const int npass = (prec == PREC_HIGH && !bf16_in) ? 3 : 1;
-  const int n_pad = nt * T, m_pad = (m + W_BK - 1) / W_BK * W_BK;
+  const int n_pad = n_padded(n), m_pad = m_padded(m);
   auto* hi = static_cast<__nv_bfloat16*>(scratch);
   auto* lo = hi + static_cast<size_t>(n_pad) * m_pad;
-  const dim3 sgrid(m_pad / 32, n_pad / 32), sblock(32, 8);
-  if (bf16_in)
-    split_kernel<__nv_bfloat16, 1><<<sgrid, sblock, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a), lda, m, n, hi, lo, m_pad);
-  else if (npass == 3)
-    split_kernel<float, 3><<<sgrid, sblock, 0, s>>>(
-        static_cast<const float*>(a), lda, m, n, hi, lo, m_pad);
-  else
-    split_kernel<float, 1><<<sgrid, sblock, 0, s>>>(
-        static_cast<const float*>(a), lda, m, n, hi, lo, m_pad);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap hi_map, lo_map;
-  err = make_map(&hi_map, hi, m_pad, n_pad);
+  cudaError_t err = make_map(&hi_map, hi, m_pad, n_pad);
   if (err == cudaSuccess)
     err = make_map(&lo_map, npass == 3 ? lo : hi, m_pad, n_pad);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int kt_n = m_pad / W_BK, psteps = promo / 16;
+  const int kt_n = m_pad / W_BK;
   if (npass == 3)
-    return fold ? launch_wgmma<3, TO, true>(hi_map, lo_map, g, ldg, m, n, nt,
-                                            kt_n, psteps, s)
-                : launch_wgmma<3, TO, false>(hi_map, lo_map, g, ldg, m, n,
-                                             nt, kt_n, psteps, s);
-  return fold ? launch_wgmma<1, TO, true>(hi_map, lo_map, g, ldg, m, n, nt,
-                                          kt_n, psteps, s)
-              : launch_wgmma<1, TO, false>(hi_map, lo_map, g, ldg, m, n, nt,
-                                           kt_n, psteps, s);
+    return launch_wgmma<3, TO>(hi_map, lo_map, g, ldg, m, n, nt, kt_n, s);
+  return launch_wgmma<1, TO>(hi_map, lo_map, g, ldg, m, n, nt, kt_n, s);
 }
 
 }  // namespace
 
-// a: m x n with row stride lda and unit column stride; g: n x n output with
-// row stride ldg. bf16_in / bf16_out select bf16 (else f32) for a / g.
-// scratch: at 'high' / 'default' the packed split copy, npass x n_pad x
-// m_pad bf16 (n_pad = n rounded up to 128, m_pad = m rounded up to 64;
-// npass 2 at 'high' for f32 input, else 1); unused at 'highest'. promo:
-// contraction rows per tensor-core promotion interval (32, 64 or 128).
+// The split pass: packs a (m x n, row stride lda, unit column stride; bf16
+// if bf16_in, else f32) into scratch K-major as hi and, when lo != 0 (f32
+// input at 'high'), lo right after it, each n_pad x m_pad bf16 (n_pad = n
+// rounded up to 128, m_pad = m rounded up to 64, zeros in the padding).
 // Returns a cudaError_t.
+extern "C" int capital_syrk_split(int bf16_in, int lo, const void* a,
+                                  long long lda, int m, int n, void* scratch,
+                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m < 1 || n < 1 || (bf16_in && lo))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_pad = n_padded(n), m_pad = m_padded(m);
+  auto* h = static_cast<__nv_bfloat16*>(scratch);
+  auto* l = h + static_cast<size_t>(n_pad) * m_pad;
+  const dim3 grid(m_pad / 32, n_pad / 32), block(32, 8);
+  if (bf16_in)
+    split_kernel<__nv_bfloat16, false><<<grid, block, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(a), lda, m, n, h, l, m_pad);
+  else if (lo)
+    split_kernel<float, true><<<grid, block, 0, s>>>(
+        static_cast<const float*>(a), lda, m, n, h, l, m_pad);
+  else
+    split_kernel<float, false><<<grid, block, 0, s>>>(
+        static_cast<const float*>(a), lda, m, n, h, l, m_pad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a: m x n with row stride lda and unit column stride, read at 'highest';
+// g: n x n output with row stride ldg. bf16_in / bf16_out select bf16
+// (else f32) for a / g. scratch: at 'high' / 'default' a's packed copy as
+// capital_syrk_split wrote it (with lo for f32 input at 'high'); unused at
+// 'highest'. Returns a cudaError_t.
 extern "C" int capital_syrk_upper(int bf16_in, int bf16_out, int prec,
                                   const void* a, long long lda, void* g,
                                   long long ldg, int m, int n, void* scratch,
-                                  int promo, void* stream) {
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16_out)
     return run(bf16_in, prec, a, lda, static_cast<__nv_bfloat16*>(g), ldg, m,
-               n, scratch, promo, s);
+               n, scratch, s);
   return run(bf16_in, prec, a, lda, static_cast<float*>(g), ldg, m, n,
-             scratch, promo, s);
+             scratch, s);
 }

@@ -8,12 +8,12 @@ chunks of `mc`, the running sum folded into a second accumulator every 32
 chunks (32 x 512 rows on the card, as on the TPU), and each entry with
 row <= col mirrored below the diagonal, so G is bitwise symmetric.
 
-At 'high' / 'default' the kernel first packs A once into a K-major bf16
-copy (`split_pack_plain` is its plain version): hi, and at 'high' lo,
-each n_pad x m_pad, so the wrapper allocates m_pad * n_pad * 2 bytes of
+At 'high' / 'default' the wrapper first packs A once into a K-major bf16
+copy (`split_pack`, whose plain version is `split_pack_plain`): hi, and at
+'high' lo, each n_pad x m_pad, so it allocates m_pad * n_pad * 2 bytes of
 scratch a pass (m * n * 4 bytes at 'high'). The tensor cores then sum each
-promotion interval of `PROMOTION_ROWS` contraction rows in a fresh
-accumulator that is added to the running f32 sum.
+promotion interval of 128 contraction rows in a fresh accumulator that is
+added to the running f32 sum.
 """
 
 from __future__ import annotations
@@ -31,14 +31,13 @@ _T = 128    # the kernel's output tile side
 _BK = 64    # the tensor-core kernel's contraction rows per stage
 _MC = 512   # row chunk; the fold fires every _FOLD chunks
 _FOLD = 32
-# contraction rows per tensor-core promotion interval (32, 64 or 128): the
-# measured error of each at 16384 deep is in PERF.md
-PROMOTION_ROWS = 128
 
 _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+_SPLIT_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
 
 
 def split_shape(m: int, n: int) -> tuple[int, int]:
@@ -61,6 +60,34 @@ def split_pack_plain(a: torch.Tensor, level: str):
     return hi.to(torch.bfloat16), lo.to(torch.bfloat16)
 
 
+def _check_input(av: torch.Tensor) -> None:
+    if av.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"syrk_upper kernel takes f32/bf16, got {av.dtype}")
+    if av.stride(1) != 1:
+        raise ValueError("syrk_upper kernel needs a unit column stride")
+
+
+def split_pack(a: torch.Tensor, level: str):
+    """The split pass: (hi, lo) as `split_pack_plain` gives them. On a CUDA
+    tensor the split kernel writes them as the two planes of one buffer
+    (lo, where there is one, right after hi), as the product kernel reads
+    them."""
+    if not a.is_cuda:
+        return split_pack_plain(a, level)
+    _check_input(a)
+    m, n = a.shape
+    lo = level == HIGH and a.dtype == torch.float32
+    buf = torch.empty((2 if lo else 1, *split_shape(m, n)),
+                      dtype=torch.bfloat16, device=a.device)
+    fn = _build.function("syrk_upper", "capital_syrk_split", _SPLIT_ARGTYPES)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(int(a.dtype == torch.bfloat16), int(lo), a.data_ptr(),
+                 a.stride(0), m, n, buf.data_ptr(), stream)
+    _build.check("syrk_upper", err, "syrk_upper split pass")
+    return buf[0], buf[1] if lo else None
+
+
 def syrk_upper(a: torch.Tensor, out_dtype=torch.float32, *,
                matmul_precision=None, a_window=None) -> torch.Tensor:
     """Full symmetric G = A^T A of A, or of its (r0, c0, h, w) window."""
@@ -68,27 +95,19 @@ def syrk_upper(a: torch.Tensor, out_dtype=torch.float32, *,
     level = level_for(av.dtype, matmul_precision)
     if not av.is_cuda:
         return syrk_upper_plain(av, out_dtype, prec=level)
-    if av.dtype not in (torch.float32, torch.bfloat16) or out_dtype not in (
-            torch.float32, torch.bfloat16):
-        raise TypeError(f"syrk_upper kernel takes f32/bf16, got {av.dtype} "
-                        f"-> {out_dtype}")
-    if av.stride(1) != 1:
-        raise ValueError("syrk_upper kernel needs a unit column stride")
+    _check_input(av)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"syrk_upper kernel writes f32/bf16, not {out_dtype}")
     m, n = av.shape
     g = torch.empty((n, n), dtype=out_dtype, device=av.device)
-    scratch = None
-    if level != HIGHEST:
-        npass = 2 if level == HIGH and av.dtype == torch.float32 else 1
-        scratch = torch.empty((npass, *split_shape(m, n)),
-                              dtype=torch.bfloat16, device=av.device)
+    hi = None if level == HIGHEST else split_pack(av, level)[0]
     fn = _build.function("syrk_upper", "capital_syrk_upper", _ARGTYPES)
     with torch.cuda.device(av.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(int(av.dtype == torch.bfloat16),
                  int(out_dtype == torch.bfloat16), _PREC_CODE[level],
                  av.data_ptr(), av.stride(0), g.data_ptr(), g.stride(0),
-                 m, n, None if scratch is None else scratch.data_ptr(),
-                 PROMOTION_ROWS, stream)
+                 m, n, None if hi is None else hi.data_ptr(), stream)
     _build.check("syrk_upper", err, "syrk_upper launch")
     syrk_upper.launches += 1
     return g

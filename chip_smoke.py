@@ -11,15 +11,16 @@
    by the port) and the card's bound for the work.
    - at 'highest' and 'high': TRMM in all four cases on a 16384 window;
      SYRK on a 16384 x 16384 window, a ragged 2995 x 1000 window at an
-     unaligned offset and a 512 x 512 window (the path's smallest), G
-     bitwise symmetric each time; at 'high' also each tensor-core
-     promotion interval (32, 64, 128 rows) at 16384 deep, a bf16-in /
-     bf16-out SYRK (4096^2, integer-valued so every summation order is
-     exact: equal to the plain version bit for bit) and the fused
-     Cholesky leaf at n = 128, 256, 512, 1024 with the kernels it runs
-     per call (torch.profiler). Tolerance: relative Frobenius 1e-5 for
-     each output (the leaf's R and Rinv apart), as the kernel and the
-     plain version sum in different orders;
+     unaligned offset, a 512 x 512 window (the path's smallest) and a
+     17000 x 256 operand (deeper than 32 x 512 rows, so the kernels'
+     fold fires), G bitwise symmetric each time; at 'high' also the
+     split pass on the ragged window, bitwise against its plain version
+     (hi and lo), a bf16-in / bf16-out SYRK (4096^2, integer-valued so
+     every summation order is exact: equal to the plain version bit for
+     bit) and the fused Cholesky leaf at n = 128, 256, 512, 1024 with the
+     kernels it runs per call (torch.profiler). Tolerance: relative
+     Frobenius 1e-5 for each output (the leaf's R and Rinv apart), as the
+     kernel and the plain version sum in different orders;
    - the LU panel leaf (getrf_leaf) on two strips the LU path runs: the
      tallest, 32768 x 128, and a ragged 17792 x 128, each a window of a
      workspace with row stride 32768. pj and pivots must be identical and
@@ -41,9 +42,13 @@
 
 Exits non-zero on any failure, or when no CUDA device is present. The
 last three lines are the card's name and power limit, a JSON object with
-one row per kernel and shape (every kernel, those no ported path runs
-yet with 0 launches) and {"ok": true, "device": {...}}; the full record
-is written to chiprun_out/chip_smoke.json.
+one row per kernel and shape and {"ok": true, "device": {...}}; the full
+record is written to chiprun_out/chip_smoke.json. A row's `launches` is
+the count of its kernel on the main path that runs it at the row's
+precision and input type and on the row's kind of operand; a row that no
+main path runs so (TRMM R,trans, the ragged, fold and bf16 SYRK rows, the
+leaf at a block size other than the base case) has `on_path` false and 0
+launches.
 """
 
 from __future__ import annotations
@@ -138,9 +143,6 @@ def tree(n: int, bc: int, split: int = 1):
 
 
 def kernel_phase(level: str, failures: list) -> list:
-    from unittest import mock
-
-    from capital_tpu_torch.ops import cuda_syrk
     from capital_tpu_torch.ops.cuda_syrk import syrk_upper, syrk_upper_plain
     from capital_tpu_torch.ops.cuda_trmm import trmm_upper, trmm_upper_plain
 
@@ -207,16 +209,19 @@ def kernel_phase(level: str, failures: list) -> list:
 
     # SYRK on the same 16384 x 16384 window (the top-level Schur), a
     # ragged window at an unaligned offset (n = 1000 is no multiple of 128,
-    # m = 2995 none of 512; the FFMA kernel's edge path), and 512^2, the
-    # main path's smallest call. G must be bitwise symmetric everywhere
-    syrk_cases = ((None, bw), ("ragged", (5, 3, 2995, 1000)),
-                  ("512", (0, n, 512, 512)))
-    for case, win in syrk_cases:
+    # m = 2995 none of 512; the FFMA kernel's edge path), 512^2, the main
+    # path's smallest call, and 17000 x 256, deeper than 32 x 512 rows, so
+    # the fold fires. G must be bitwise symmetric everywhere
+    tall = torch.rand((17000, 256), generator=gen, device=dev) - 0.5
+    syrk_cases = ((None, work, bw), ("ragged", work, (5, 3, 2995, 1000)),
+                  ("512", work, (0, n, 512, 512)),
+                  ("fold", tall, (0, 0, *tall.shape)))
+    for case, src, win in syrk_cases:
         r0, c0, h, w = win
-        view = work[r0:r0 + h, c0:c0 + w]
+        view = src[r0:r0 + h, c0:c0 + w]
 
-        def ks(win=win):
-            return syrk_upper(work, a_window=win, matmul_precision=level)
+        def ks(src=src, win=win):
+            return syrk_upper(src, a_window=win, matmul_precision=level)
 
         ms = events_ms(ks, 3 if case is None else 20)
         got = ks()
@@ -226,21 +231,11 @@ def kernel_phase(level: str, failures: list) -> list:
                            2 if case is None else 20)
         row = add("syrk_upper", case, [h, w], got, plain_ms, want, ms, lib_ms,
                   passes * h * w * (w + 1), 4 * (h * w + w * w), peak)
-        if case is None and level == "high":
-            # the promotion interval: error against the plain version and
-            # time at 16384 deep for each choice
-            row["promotion_intervals"] = {}
-            for promo in (32, 64, 128):
-                with mock.patch.object(cuda_syrk, "PROMOTION_ROWS", promo):
-                    pms = events_ms(ks, 3)
-                    prel, pmae = compare(ks(), want)
-                row["promotion_intervals"][promo] = {
-                    "ms": pms, "rel_err": prel, "max_abs_err": pmae}
-                print(f"[kernel] syrk_upper promotion interval {promo}: "
-                      f"ms={pms:.3f} rel_err={prel:.3e} "
-                      f"max_abs_err={pmae:.3e}", flush=True)
+        if case == "ragged" and level == "high":
+            row["split_bitwise"] = {lvl: check_split(view, lvl, failures)
+                                    for lvl in ("high", "default")}
         del got, want
-    del work, bv
+    del work, bv, tall
 
     if level == "high":
         bf16_syrk(gen, failures, add)
@@ -251,6 +246,24 @@ def kernel_phase(level: str, failures: list) -> list:
 def check_symmetric(g: torch.Tensor, what: str, failures: list) -> None:
     if not torch.equal(g, g.T):
         failures.append(f"{what}: G is not bitwise symmetric")
+
+
+def check_split(a: torch.Tensor, level: str, failures: list) -> bool:
+    """SYRK's split pass on the card against its plain version, bit for bit
+    (hi, and lo where there is one, padding included)."""
+    from capital_tpu_torch.ops.cuda_syrk import split_pack, split_pack_plain
+
+    got, want = split_pack(a, level), split_pack_plain(a, level)
+    same = all((g is None and w is None) or (
+        g is not None and w is not None
+        and torch.equal(g.view(torch.int16), w.view(torch.int16)))
+        for g, w in zip(got, want))
+    print(f"[kernel] syrk_upper split pass {list(a.shape)} @{level}: "
+          f"bitwise equal to the plain version={same}", flush=True)
+    if not same:
+        failures.append(f"syrk_upper split pass @{level}: differs from "
+                        "split_pack_plain")
+    return same
 
 
 def bf16_syrk(gen, failures: list, add) -> None:
@@ -269,6 +282,7 @@ def bf16_syrk(gen, failures: list, add) -> None:
     ms = events_ms(k, 10)
     got = k()
     check_symmetric(got, "syrk_upper[bf16]@default", failures)
+    check_split(a, "default", failures)
     plain_ms, want = once_ms(lambda: syrk_upper_plain(a, torch.bfloat16))
     lib_ms = events_ms(lambda: torch.matmul(a.T, a), 10)
     if not torch.equal(got, want):
@@ -507,6 +521,26 @@ def lu_path(n: int, nb: int, lookahead: bool, k_rhs: int,
     return rec
 
 
+def path_launches(row: dict, mains: list, lus: list) -> tuple[bool, int]:
+    """(on_path, launches) of a kernel row: whether a main path runs its
+    kernel at its precision, input type and kind of operand (the
+    recursion's 128-aligned windows at most 32 x 512 rows deep; the leaf at
+    the base case; the LU leaf's strips), and that run's launches, else 0.
+    TRMM's R,trans case is on no ported path yet (QDWH uses it)."""
+    kernel, case = row["kernel"], row["case"]
+    if kernel == "getrf_leaf":
+        return True, lus[0]["launches"]["getrf_leaf"]
+    if kernel == "chol_inv":  # f32 at every precision: the headline run
+        on = case == f"n={mains[0]['bc']}"
+        return on, mains[0]["launches"]["chol_inv"] if on else 0
+    if case in ("R,trans", "ragged", "fold", "bf16"):
+        return False, 0
+    got = next(mp for mp in mains
+               if mp["precision"] == row["precision"])["launches"]
+    return True, (got["trmm_upper_by_case"][case] if kernel == "trmm_upper"
+                  else got[kernel])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -530,21 +564,8 @@ def main() -> int:
     mains = [main_path(n, level, failures) for n, level in MAIN_RUNS]
     lus = [lu_path(*run, failures) for run in LU_RUNS]
     for row in rows:
-        # launches: the main-path run that runs the kernel (cholinv at the
-        # row's precision, the headline run for the f32 leaf and bf16 SYRK;
-        # the headline LU run for the LU leaf). TRMM's R,trans case is on
-        # no ported path yet (QDWH uses it): it is held against its plain
-        # version above and listed with its 0 launches
-        if row["kernel"] == "getrf_leaf":
-            row["launches"] = lus[0]["launches"]["getrf_leaf"]
-        else:
-            got = next((mp for mp in mains
-                        if mp["precision"] == row["precision"]),
-                       mains[0])["launches"]
-            row["launches"] = (got["trmm_upper_by_case"][row["case"]]
-                               if row["kernel"] == "trmm_upper"
-                               else got[row["kernel"]])
-        if row["launches"] == 0 and row["case"] != "R,trans":
+        row["on_path"], row["launches"] = path_launches(row, mains, lus)
+        if row["on_path"] and not row["launches"]:
             failures.append(f"{row['name']} never launched on the main path")
     result = {"card": card, "kernels": rows, "main": mains, "lu": lus,
               "failures": failures}

@@ -106,14 +106,16 @@ def _split_cases(shape):
     return x
 
 
+@pytest.mark.parametrize("fn", ["split_pack_plain", "split_pack"])
 @pytest.mark.parametrize("level", ["high", "default"])
 @pytest.mark.parametrize("shape", [(64, 128), (100, 70)])
-def test_split_pack_matches_jax_split_f32(shape, level):
-    """The split pass's plain version: hi[c, k] is _split_f32's hi of
-    A[k, c] bit for bit (RNE on the bit pattern), lo at 'high' is
-    bf16(x - hi), and the padding up to (128, 64) multiples is zero."""
+def test_split_pack_matches_jax_split_f32(shape, level, fn):
+    """The split pass's plain version, and the wrapper's CPU route: hi[c, k]
+    is _split_f32's hi of A[k, c] bit for bit (RNE on the bit pattern), lo
+    at 'high' is bf16(x - hi), and the padding up to (128, 64) multiples is
+    zero."""
     x = _split_cases(shape)
-    hi, lo = cuda_syrk.split_pack_plain(torch.from_numpy(x), level)
+    hi, lo = getattr(cuda_syrk, fn)(torch.from_numpy(x), level)
     m, n = shape
     n_pad, m_pad = cuda_syrk.split_shape(m, n)
     assert hi.shape == (n_pad, m_pad) and hi.dtype == torch.bfloat16
