@@ -49,7 +49,7 @@
 #include <algorithm>
 #include <cooperative_groups.h>
 
-#include "tile_dot.cuh"  // capital_error_string
+#include "common.cuh"  // capital_error_string
 
 namespace cg = cooperative_groups;
 

@@ -40,7 +40,7 @@
 #include <climits>
 #include <cooperative_groups.h>
 
-#include "tile_dot.cuh"  // capital_error_string
+#include "common.cuh"  // capital_error_string
 
 namespace cg = cooperative_groups;
 

@@ -1,10 +1,11 @@
 """Tile product at a chosen matmul precision (counterpart of
 capital_tpu/ops/pallas_dot.py: canonicalize, _split_f32, tile_dot).
 
-On the card this is the device function library `csrc/tile_dot.cuh`,
-shared by the TRMM and SYRK kernels; it is not launched on its own. Here
-is its plain PyTorch version, which the plain versions of those kernels
-call tile by tile:
+On the card the ladder is part of the product kernels of TRMM and SYRK
+(`csrc/hopper_mma.cuh`: the pack pass splits each operand once, the
+tensor-core or FFMA product sums the passes); it is not launched on its
+own. Here is its plain PyTorch version, which the plain versions of those
+kernels call tile by tile:
 
   highest  f32 product (FFMA on the card, never TF32)
   high     hi = RNE bf16(x), lo = bf16(x - hi); hi*hi + (hi*lo + lo*hi),

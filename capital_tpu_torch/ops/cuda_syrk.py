@@ -9,9 +9,10 @@ chunks (32 x 512 rows on the card, as on the TPU), and each entry with
 row <= col mirrored below the diagonal, so G is bitwise symmetric.
 
 At 'high' / 'default' the wrapper first packs A once into a K-major bf16
-copy (`split_pack`, whose plain version is `split_pack_plain`): hi, and at
-'high' lo, each n_pad x m_pad, so it allocates m_pad * n_pad * 2 bytes of
-scratch a pass (m * n * 4 bytes at 'high'). The tensor cores then sum each
+copy (`split_pack`: the shared pack pass of `ops/cuda_pack.py` along A's
+rows, whose plain version is `split_pack_plain`): hi, and at 'high' lo,
+each n_pad x m_pad, so it allocates m_pad * n_pad * 2 bytes of scratch a
+pass (m * n * 4 bytes at 'high'). The tensor cores then sum each
 promotion interval of 128 contraction rows in a fresh accumulator that is
 added to the running f32 sum.
 """
@@ -22,27 +23,23 @@ import ctypes
 
 import torch
 
-from capital_tpu_torch.ops import _build
+from capital_tpu_torch.ops import _build, cuda_pack
 from capital_tpu_torch.ops.cuda_dot import tile_dot_plain
 from capital_tpu_torch.ops.cuda_trmm import _PREC_CODE, level_for, window
-from capital_tpu_torch.ops.precision import HIGH, HIGHEST, split_f32
+from capital_tpu_torch.ops.precision import HIGHEST
 
 _T = 128    # the kernel's output tile side
-_BK = 64    # the tensor-core kernel's contraction rows per stage
 _MC = 512   # row chunk; the fold fires every _FOLD chunks
 _FOLD = 32
 
 _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-_SPLIT_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
 
 
 def split_shape(m: int, n: int) -> tuple[int, int]:
     """(n_pad, m_pad) of the packed copy: n to the tile, m to the stage."""
-    return -(-n // _T) * _T, -(-m // _BK) * _BK
+    return cuda_pack.pack_shape(n, m)
 
 
 def split_pack_plain(a: torch.Tensor, level: str):
@@ -50,14 +47,7 @@ def split_pack_plain(a: torch.Tensor, level: str):
     hi[c, k] from A[k, c] and zeros in the padding. At 'high' hi is
     `split_f32`'s (RNE on the bit pattern) and lo = bf16(x - hi); otherwise
     hi = bf16(x) and lo is None."""
-    m, n = a.shape
-    n_pad, m_pad = split_shape(m, n)
-    x = torch.zeros((n_pad, m_pad), dtype=torch.float32, device=a.device)
-    x[:n, :m] = a.T.float()
-    if level != HIGH or a.dtype == torch.bfloat16:
-        return x.to(torch.bfloat16), None
-    hi, lo = split_f32(x)
-    return hi.to(torch.bfloat16), lo.to(torch.bfloat16)
+    return cuda_pack.pack_plain(a, level)
 
 
 def _check_input(av: torch.Tensor) -> None:
@@ -69,23 +59,10 @@ def _check_input(av: torch.Tensor) -> None:
 
 def split_pack(a: torch.Tensor, level: str):
     """The split pass: (hi, lo) as `split_pack_plain` gives them. On a CUDA
-    tensor the split kernel writes them as the two planes of one buffer
+    tensor the pack kernel writes them as the two planes of one buffer
     (lo, where there is one, right after hi), as the product kernel reads
     them."""
-    if not a.is_cuda:
-        return split_pack_plain(a, level)
-    _check_input(a)
-    m, n = a.shape
-    lo = level == HIGH and a.dtype == torch.float32
-    buf = torch.empty((2 if lo else 1, *split_shape(m, n)),
-                      dtype=torch.bfloat16, device=a.device)
-    fn = _build.function("syrk_upper", "capital_syrk_split", _SPLIT_ARGTYPES)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(int(a.dtype == torch.bfloat16), int(lo), a.data_ptr(),
-                 a.stride(0), m, n, buf.data_ptr(), stream)
-    _build.check("syrk_upper", err, "syrk_upper split pass")
-    return buf[0], buf[1] if lo else None
+    return cuda_pack.pack(a, level, lib="syrk_upper")
 
 
 def syrk_upper(a: torch.Tensor, out_dtype=torch.float32, *,

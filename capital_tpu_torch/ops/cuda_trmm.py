@@ -6,12 +6,19 @@ tiles only (counterpart of capital_tpu/ops/pallas_trmm.py::trmm_upper).
   side='R'             C = B @ triu(U)        pairs k <= j  (inverse assembly)
   side='R', trans_a    C = B @ triu(U)^T      pairs k >= j  (QDWH)
 
-On a CUDA tensor `trmm_upper` launches the hand-written kernel
-(`csrc/trmm_upper.cu`); on a CPU tensor it runs `trmm_upper_plain`, which
-repeats the kernel's schedule on tensors: the same output tiles, the same
-k range per tile, the diagonal tile masked, f32 accumulation through
-`tile_dot_plain`. Windows are strided views handed to the kernel as
-pointer + leading dimension, never copied.
+On a CUDA tensor `trmm_upper` launches the hand-written kernels
+(`csrc/trmm_upper.cu`): the pack pass (`ops/cuda_pack.py`) writes both
+operands into scratch the wrapper allocates, U masked to its triangle,
+and the product reads the packs (`wgmma` over bf16 packs at 'high' /
+'default', FFMA over f32 packs at 'highest'). The scratch is
+(o_pad_A + o_pad_B) * k_pad elements a plane, freed when the call
+returns: (n^2 + n*m) * 4 bytes at 'high' and 'highest' for 128-aligned
+shapes, half that at 'default'. On a CPU tensor it runs
+`trmm_upper_plain`, which repeats the kernel's schedule on tensors: the
+same output tiles, the same k range per tile, the diagonal tile masked,
+each 128-deep k tile summed on its own (the kernel's promotion interval)
+through `tile_dot_plain`. Windows are strided views handed to the kernel
+as pointer + leading dimension, never copied.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ import ctypes
 
 import torch
 
-from capital_tpu_torch.ops import _build
+from capital_tpu_torch.ops import _build, cuda_pack
 from capital_tpu_torch.ops.cuda_dot import tile_dot_plain
 from capital_tpu_torch.ops.precision import (DEFAULT, HIGH, HIGHEST,
                                              canonicalize, prec)
@@ -32,7 +39,8 @@ CASES = ("L", "L,trans", "R", "R,trans")
 _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+             ctypes.c_void_p]
 
 
 def window(x: torch.Tensor, win) -> torch.Tensor:
@@ -82,13 +90,15 @@ def trmm_upper(u: torch.Tensor, b: torch.Tensor, *, side: str = "L",
                          "with unit column stride")
     m = bv.shape[1] if side == "L" else bv.shape[0]
     out = torch.empty(bv.shape, dtype=bv.dtype, device=bv.device)
+    scratch = torch.empty(scratch_bytes(n, m, level, bv.dtype),
+                          dtype=torch.uint8, device=bv.device)
     fn = _build.function("trmm_upper", "capital_trmm_upper", _ARGTYPES)
     with torch.cuda.device(bv.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(int(bv.dtype == torch.bfloat16), _PREC_CODE[level],
                  int(side == "R"), int(trans_a), uv.data_ptr(), uv.stride(0),
                  bv.data_ptr(), bv.stride(0), out.data_ptr(), out.stride(0),
-                 n, m, float(alpha), stream)
+                 n, m, float(alpha), scratch.data_ptr(), stream)
     _build.check("trmm_upper", err, "trmm_upper launch")
     trmm_upper.launches += 1
     trmm_upper.by_case[CASES[2 * (side == "R") + bool(trans_a)]] += 1
@@ -97,6 +107,14 @@ def trmm_upper(u: torch.Tensor, b: torch.Tensor, *, side: str = "L",
 
 trmm_upper.launches = 0
 trmm_upper.by_case = dict.fromkeys(CASES, 0)
+
+
+def scratch_bytes(n: int, m: int, level: str, dtype: torch.dtype) -> int:
+    """Bytes of the two packs a call on U (n x n) and B (n x m or m x n)
+    needs: one operand is n x n-sized (o = n), the other o = m, and both
+    contract over k = n, whatever the side."""
+    pm = cuda_pack.mode(level, dtype)
+    return cuda_pack.nbytes(n, n, pm) + cuda_pack.nbytes(m, n, pm)
 
 
 def trmm_upper_plain(u: torch.Tensor, b: torch.Tensor, *, side: str = "L",

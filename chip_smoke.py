@@ -9,18 +9,25 @@
    the same inputs at the main paths' shapes. Times each kernel, its plain
    version, one library call computing the same function (never called
    by the port) and the card's bound for the work.
-   - at 'highest' and 'high': TRMM in all four cases on a 16384 window;
-     SYRK on a 16384 x 16384 window, a ragged 2995 x 1000 window at an
-     unaligned offset, a 512 x 512 window (the path's smallest) and a
-     17000 x 256 operand (deeper than 32 x 512 rows, so the kernels'
-     fold fires), G bitwise symmetric each time; at 'high' also the
-     split pass on the ragged window, bitwise against its plain version
-     (hi and lo), a bf16-in / bf16-out SYRK (4096^2, integer-valued so
-     every summation order is exact: equal to the plain version bit for
-     bit) and the fused Cholesky leaf at n = 128, 256, 512, 1024 with the
-     kernels it runs per call (torch.profiler). Tolerance: relative
-     Frobenius 1e-5 for each output (the leaf's R and Rinv apart), as the
-     kernel and the plain version sum in different orders;
+   - at 'highest' and 'high': TRMM in all four cases on a 16384 window,
+     on a ragged U (n = 1000) with B 1000 x 2995 (or 2995 x 1000), both
+     windows at offsets that are no multiple of 4, and at 512^2 (the
+     path's smallest call); on the ragged windows also the pack pass
+     (ops/cuda_pack.py) bitwise against its plain version: U masked to
+     its triangle and B, each read along its rows and along its columns,
+     at the row's level (and at 'default' beside 'high'). SYRK on a
+     16384 x 16384 window, a ragged 2995 x 1000 window at an unaligned
+     offset, a 512 x 512 window (the path's smallest) and a 17000 x 256
+     operand (deeper than 32 x 512 rows, so the kernels' fold fires), G
+     bitwise symmetric each time; at 'high' also SYRK's split pass on the
+     ragged window, bitwise against its plain version (hi and lo),
+     bf16-in / bf16-out SYRK and TRMM (all four cases) at 'default'
+     (4096^2, integer-valued so every summation order is exact: equal to
+     the plain version bit for bit) and the fused Cholesky leaf at n =
+     128, 256, 512, 1024 with the kernels it runs per call
+     (torch.profiler). Tolerance: relative Frobenius 1e-5 for each output
+     (the leaf's R and Rinv apart), as the kernel and the plain version
+     sum in different orders;
    - the LU panel leaf (getrf_leaf) on two strips the LU path runs: the
      tallest, 32768 x 128, and a ragged 17792 x 128, each a window of a
      workspace with row stride 32768. pj and pivots must be identical and
@@ -46,9 +53,10 @@ one row per kernel and shape and {"ok": true, "device": {...}}; the full
 record is written to chiprun_out/chip_smoke.json. A row's `launches` is
 the count of its kernel on the main path that runs it at the row's
 precision and input type and on the row's kind of operand; a row that no
-main path runs so (TRMM R,trans, the ragged, fold and bf16 SYRK rows, the
-leaf at a block size other than the base case) has `on_path` false and 0
-launches.
+main path runs so (TRMM R,trans, the ragged, fold and bf16 TRMM and SYRK
+rows, the leaf at a block size other than the base case) has `on_path`
+false and 0 launches. A TRMM row's case is its side and transpose, with
+":ragged", ":512" or ":bf16" after it for the shapes beside 16384.
 """
 
 from __future__ import annotations
@@ -178,34 +186,53 @@ def kernel_phase(level: str, failures: list) -> list:
         return row
 
     # TRMM: U is the top-left 16384 block, B the 16384 x 16384 window at
-    # column offset 16384 of a 16384 x 32768 workspace (cholinv's shapes)
+    # column offset 16384 of a 16384 x 32768 workspace (cholinv's shapes);
+    # then a ragged U (n = 1000) and B (1000 x 2995 or 2995 x 1000) at
+    # unaligned offsets (no multiple of 4: the pack's edge path), and 512^2,
+    # the main path's smallest call
     u = torch.rand((n, n), generator=gen, device=dev) - 0.5
     work = torch.rand((n, 2 * n), generator=gen, device=dev) - 0.5
     bw = (0, n, n, m)
-    bv = work[:, n:]
-    for side, trans in (("L", True), ("R", False), ("L", False),
-                        ("R", True)):
-        case = side + (",trans" if trans else "")
+    trmm_cases = ((None, None, bw, 3),
+                  ("ragged", (5, 9, 1000), (3, 7, 1000, 2995), 20),
+                  ("512", (0, 0, 512), (0, n, 512, 512), 20))
+    for variant, uw, bwin, reps in trmm_cases:
+        for side, trans in (("L", True), ("R", False), ("L", False),
+                            ("R", True)):
+            case = side + (",trans" if trans else "")
+            r0, c0, h, w = bwin if side == "L" else (bwin[0], bwin[1],
+                                                      bwin[3], bwin[2])
+            nn = h if side == "L" else w
+            mm = w if side == "L" else h
+            uv = u if uw is None else u[uw[0]:uw[0] + nn, uw[1]:uw[1] + nn]
+            bv = work[r0:r0 + h, c0:c0 + w]
 
-        def k(side=side, trans=trans):
-            return trmm_upper(u, work, side=side, trans_a=trans,
-                              b_window=bw, matmul_precision=level)
+            def k(side=side, trans=trans, uw=uw, win=(r0, c0, h, w)):
+                return trmm_upper(u, work, side=side, trans_a=trans,
+                                  u_window=uw, b_window=win,
+                                  matmul_precision=level)
 
-        ms = events_ms(k, 3)
-        got = k()
-        plain_ms, want = once_ms(lambda: trmm_upper_plain(
-            u, bv, side=side, trans_a=trans, prec=level))
-        def lib(side=side, trans=trans):
-            t = torch.triu(u).T if trans else torch.triu(u)
-            return torch.matmul(t, bv) if side == "L" else torch.matmul(bv, t)
+            ms = events_ms(k, reps)
+            got = k()
+            plain_ms, want = once_ms(lambda: trmm_upper_plain(
+                uv, bv, side=side, trans_a=trans, prec=level))
 
-        lib_ms = events_ms(lib, 2)
-        ops = passes * m * n * (n + 1)
-        nbytes = 4 * (n * (n + 1) / 2 + 2 * n * m)
-        add("trmm_upper", case, [n, m], got, plain_ms, want, ms, lib_ms, ops,
-            nbytes, peak)
-        del got, want
-    del u
+            def lib(side=side, trans=trans, uv=uv, bv=bv):
+                t = torch.triu(uv).T if trans else torch.triu(uv)
+                return (torch.matmul(t, bv) if side == "L"
+                        else torch.matmul(bv, t))
+
+            lib_ms = events_ms(lib, 2 if variant is None else reps)
+            ops = passes * mm * nn * (nn + 1)
+            nbytes = 4 * (nn * (nn + 1) / 2 + 2 * nn * mm)
+            row = add("trmm_upper",
+                      case if variant is None else f"{case}:{variant}",
+                      [nn, mm], got, plain_ms, want, ms, lib_ms, ops,
+                      nbytes, peak)
+            if variant == "ragged" and case == "L,trans":
+                row["pack_bitwise"] = check_packs(uv, bv, level, failures)
+            del got, want
+    del u, uv
 
     # SYRK on the same 16384 x 16384 window (the top-level Schur), a
     # ragged window at an unaligned offset (n = 1000 is no multiple of 128,
@@ -239,6 +266,7 @@ def kernel_phase(level: str, failures: list) -> list:
 
     if level == "high":
         bf16_syrk(gen, failures, add)
+        bf16_trmm(gen, failures, add)
         leaf_rows(gen, add)
     return rows
 
@@ -264,6 +292,71 @@ def check_split(a: torch.Tensor, level: str, failures: list) -> bool:
         failures.append(f"syrk_upper split pass @{level}: differs from "
                         "split_pack_plain")
     return same
+
+
+def check_packs(u: torch.Tensor, b: torch.Tensor, level: str,
+                failures: list) -> dict:
+    """The pack pass on the card against its plain version, bit for bit
+    (hi, lo where there is one, the zero padding and the masked lower
+    triangle), on ragged windows at unaligned offsets: U masked, read along
+    its rows (U^T) and along its columns; B unmasked, both ways. At 'high'
+    also the one-plane pack of 'default'."""
+    from capital_tpu_torch.ops.cuda_pack import pack, pack_plain
+
+    out = {}
+    for lvl in ((level, "default") if level == "high" else (level,)):
+        for name, a, upper in (("U", u, True), ("B", b, False)):
+            for along_rows in (True, False):
+                got = pack(a, lvl, along_rows=along_rows, upper=upper)
+                want = pack_plain(a, lvl, along_rows=along_rows, upper=upper)
+                same = all((g is None and w is None) or (
+                    g is not None and w is not None and g.shape == w.shape
+                    and torch.equal(g.view(torch.int16) if g.dtype ==
+                                    torch.bfloat16 else g.view(torch.int32),
+                                    w.view(torch.int16) if w.dtype ==
+                                    torch.bfloat16 else w.view(torch.int32)))
+                    for g, w in zip(got, want))
+                label = (f"{lvl}/{name}/"
+                         f"{'along_rows' if along_rows else 'along_cols'}")
+                out[label] = same
+                print(f"[kernel] pack {label} {list(a.shape)}: bitwise "
+                      f"equal to the plain version={same}", flush=True)
+                if not same:
+                    failures.append(f"pack {label}: differs from pack_plain")
+    return out
+
+
+def bf16_trmm(gen, failures: list, add) -> None:
+    """TRMM with bf16 in and out at 'default', all four cases, on
+    integer-valued data: every product and partial sum is exact in f32, so
+    the output's one rounding to bf16 must match the plain version's bit
+    for bit."""
+    from capital_tpu_torch.ops.cuda_trmm import trmm_upper, trmm_upper_plain
+
+    n = m = 4096
+    u, b = (torch.randint(-8, 9, (n, n), generator=gen, device=gen.device,
+                          dtype=torch.float32).bfloat16() for _ in range(2))
+    for side, trans in (("L", True), ("R", False), ("L", False),
+                        ("R", True)):
+        case = side + (",trans" if trans else "")
+
+        def k(side=side, trans=trans):
+            return trmm_upper(u, b, side=side, trans_a=trans)
+
+        ms = events_ms(k, 10)
+        got = k()
+        plain_ms, want = once_ms(lambda: trmm_upper_plain(
+            u, b, side=side, trans_a=trans, prec="default"))
+        t = torch.triu(u).T if trans else torch.triu(u)
+        lib_ms = events_ms(lambda: torch.matmul(t, b) if side == "L"
+                           else torch.matmul(b, t), 10)
+        if not (got.dtype == torch.bfloat16 and torch.equal(got, want)):
+            failures.append(f"trmm_upper[{case}:bf16]: differs from the "
+                            "plain version")
+        add("trmm_upper", f"{case}:bf16", [n, m], got.float(), plain_ms,
+            want.float(), ms, lib_ms, m * n * (n + 1),
+            2 * (n * (n + 1) / 2 + 2 * n * m), PEAK_BF16,
+            precision="default")
 
 
 def bf16_syrk(gen, failures: list, add) -> None:
@@ -533,11 +626,14 @@ def path_launches(row: dict, mains: list, lus: list) -> tuple[bool, int]:
     if kernel == "chol_inv":  # f32 at every precision: the headline run
         on = case == f"n={mains[0]['bc']}"
         return on, mains[0]["launches"]["chol_inv"] if on else 0
-    if case in ("R,trans", "ragged", "fold", "bf16"):
+    base, _, variant = (case or "").partition(":")
+    if kernel == "syrk_upper":
+        base, variant = None, case
+    if base == "R,trans" or variant in ("ragged", "fold", "bf16"):
         return False, 0
     got = next(mp for mp in mains
                if mp["precision"] == row["precision"])["launches"]
-    return True, (got["trmm_upper_by_case"][case] if kernel == "trmm_upper"
+    return True, (got["trmm_upper_by_case"][base] if kernel == "trmm_upper"
                   else got[kernel])
 
 
