@@ -40,8 +40,9 @@
 //    [k][outer] with 16-byte copies, which three of the four cases' operands
 //    do not have in memory (contraction along columns). Rather than a
 //    transposing load, which would give up the cp.async pipeline, the pack
-//    pass writes both operands as f32 [k][outer] copies (PACK_F32): ~2 GB
-//    of traffic at 16384^2 (~0.6 ms) against a ~100 ms product, and the
+//    pass writes both operands as f32 [k][outer] copies (PACK_F32): ~3.5
+//    GB of traffic at 16384^2 (U's triangle and B read, two 1 GB copies
+//    written; ~1 ms at 3.35 TB/s) against a ~100 ms product, and the
 //    kernel has no edge path.
 // The epilogue stages the tile through shared memory and writes
 // C = alpha * sum in B's dtype (bf16 by RNE from the f32 sum), row by row,

@@ -49,12 +49,6 @@ def mode(level: str, dtype: torch.dtype) -> int:
     return {HIGHEST: F32, HIGH: HI_LO}.get(level, HI)
 
 
-def _operand(a: torch.Tensor, along_rows: bool):
-    """(o, k) of the operand X that a holds."""
-    rows, cols = a.shape
-    return (cols, rows) if along_rows else (rows, cols)
-
-
 def nbytes(o: int, k: int, pack_mode: int) -> int:
     """Bytes of one operand's pack."""
     o_pad, k_pad = pack_shape(o, k)
@@ -82,11 +76,10 @@ def pack_plain(a: torch.Tensor, level: str, *, along_rows: bool = True,
 
 
 def pack(a: torch.Tensor, level: str, *, along_rows: bool = True,
-         upper: bool = False, lib: str = "trmm_upper"):
+         upper: bool = False):
     """The pack pass: (hi, lo) as `pack_plain` gives them. On a CUDA tensor
-    the pack kernel (of library `lib`: every product library carries it)
-    writes them as the planes of one buffer, lo right after hi, as the
-    products read them."""
+    the pack kernel writes them as the planes of one buffer, lo right after
+    hi, as the products read them."""
     if not a.is_cuda:
         return pack_plain(a, level, along_rows=along_rows, upper=upper)
     if a.dtype not in (torch.float32, torch.bfloat16):
@@ -94,18 +87,21 @@ def pack(a: torch.Tensor, level: str, *, along_rows: bool = True,
     if a.stride(1) != 1:
         raise ValueError("pack needs a unit column stride")
     m = mode(level, a.dtype)
-    o_pad, k_pad = pack_shape(*_operand(a, along_rows))
+    rows, cols = a.shape
+    o_pad, k_pad = pack_shape(cols, rows) if along_rows else pack_shape(
+        rows, cols)
     if m == F32:
         buf = torch.empty((1, k_pad, o_pad), dtype=torch.float32,
                           device=a.device)
     else:
         buf = torch.empty((2 if m == HI_LO else 1, o_pad, k_pad),
                           dtype=torch.bfloat16, device=a.device)
-    fn = _build.function(lib, "capital_pack", _ARGTYPES)
+    # every product library carries the pack (csrc/hopper_mma.cuh)
+    fn = _build.function("trmm_upper", "capital_pack", _ARGTYPES)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(int(a.dtype == torch.bfloat16), m, int(along_rows),
-                 int(upper), a.data_ptr(), a.stride(0), a.shape[0],
-                 a.shape[1], buf.data_ptr(), stream)
-    _build.check(lib, err, "pack pass")
+                 int(upper), a.data_ptr(), a.stride(0), rows, cols,
+                 buf.data_ptr(), stream)
+    _build.check("trmm_upper", err, "pack pass")
     return buf[0], buf[1] if m == HI_LO else None

@@ -9,10 +9,9 @@ chunks (32 x 512 rows on the card, as on the TPU), and each entry with
 row <= col mirrored below the diagonal, so G is bitwise symmetric.
 
 At 'high' / 'default' the wrapper first packs A once into a K-major bf16
-copy (`split_pack`: the shared pack pass of `ops/cuda_pack.py` along A's
-rows, whose plain version is `split_pack_plain`): hi, and at 'high' lo,
-each n_pad x m_pad, so it allocates m_pad * n_pad * 2 bytes of scratch a
-pass (m * n * 4 bytes at 'high'). The tensor cores then sum each
+copy (`ops/cuda_pack.py::pack` along A's rows, the split pass): hi, and
+at 'high' lo, each n_pad x m_pad, so it allocates m_pad * n_pad * 2
+bytes of scratch a pass (m * n * 4 bytes at 'high'). The tensor cores then sum each
 promotion interval of 128 contraction rows in a fresh accumulator that is
 added to the running f32 sum.
 """
@@ -37,32 +36,11 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 
-def split_shape(m: int, n: int) -> tuple[int, int]:
-    """(n_pad, m_pad) of the packed copy: n to the tile, m to the stage."""
-    return cuda_pack.pack_shape(n, m)
-
-
-def split_pack_plain(a: torch.Tensor, level: str):
-    """The split pass on tensors: (hi, lo) bf16, each (n_pad, m_pad) with
-    hi[c, k] from A[k, c] and zeros in the padding. At 'high' hi is
-    `split_f32`'s (RNE on the bit pattern) and lo = bf16(x - hi); otherwise
-    hi = bf16(x) and lo is None."""
-    return cuda_pack.pack_plain(a, level)
-
-
 def _check_input(av: torch.Tensor) -> None:
     if av.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"syrk_upper kernel takes f32/bf16, got {av.dtype}")
     if av.stride(1) != 1:
         raise ValueError("syrk_upper kernel needs a unit column stride")
-
-
-def split_pack(a: torch.Tensor, level: str):
-    """The split pass: (hi, lo) as `split_pack_plain` gives them. On a CUDA
-    tensor the pack kernel writes them as the two planes of one buffer
-    (lo, where there is one, right after hi), as the product kernel reads
-    them."""
-    return cuda_pack.pack(a, level, lib="syrk_upper")
 
 
 def syrk_upper(a: torch.Tensor, out_dtype=torch.float32, *,
@@ -77,7 +55,7 @@ def syrk_upper(a: torch.Tensor, out_dtype=torch.float32, *,
         raise TypeError(f"syrk_upper kernel writes f32/bf16, not {out_dtype}")
     m, n = av.shape
     g = torch.empty((n, n), dtype=out_dtype, device=av.device)
-    hi = None if level == HIGHEST else split_pack(av, level)[0]
+    hi = None if level == HIGHEST else cuda_pack.pack(av, level)[0]
     fn = _build.function("syrk_upper", "capital_syrk_upper", _ARGTYPES)
     with torch.cuda.device(av.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -193,18 +193,16 @@ def kernel_phase(level: str, failures: list) -> list:
     u = torch.rand((n, n), generator=gen, device=dev) - 0.5
     work = torch.rand((n, 2 * n), generator=gen, device=dev) - 0.5
     bw = (0, n, n, m)
-    trmm_cases = ((None, None, bw, 3),
-                  ("ragged", (5, 9, 1000), (3, 7, 1000, 2995), 20),
-                  ("512", (0, 0, 512), (0, n, 512, 512), 20))
-    for variant, uw, bwin, reps in trmm_cases:
+    # (variant, u_window, B's offset, n, m, timed launches)
+    trmm_cases = ((None, None, (0, n), n, m, 3),
+                  ("ragged", (5, 9, 1000), (3, 7), 1000, 2995, 20),
+                  ("512", (0, 0, 512), (0, n), 512, 512, 20))
+    for variant, uw, (r0, c0), nn, mm, reps in trmm_cases:
+        uv = u if uw is None else u[uw[0]:uw[0] + nn, uw[1]:uw[1] + nn]
         for side, trans in (("L", True), ("R", False), ("L", False),
                             ("R", True)):
             case = side + (",trans" if trans else "")
-            r0, c0, h, w = bwin if side == "L" else (bwin[0], bwin[1],
-                                                      bwin[3], bwin[2])
-            nn = h if side == "L" else w
-            mm = w if side == "L" else h
-            uv = u if uw is None else u[uw[0]:uw[0] + nn, uw[1]:uw[1] + nn]
+            h, w = (nn, mm) if side == "L" else (mm, nn)
             bv = work[r0:r0 + h, c0:c0 + w]
 
             def k(side=side, trans=trans, uw=uw, win=(r0, c0, h, w)):
@@ -259,8 +257,9 @@ def kernel_phase(level: str, failures: list) -> list:
         row = add("syrk_upper", case, [h, w], got, plain_ms, want, ms, lib_ms,
                   passes * h * w * (w + 1), 4 * (h * w + w * w), peak)
         if case == "ragged" and level == "high":
-            row["split_bitwise"] = {lvl: check_split(view, lvl, failures)
-                                    for lvl in ("high", "default")}
+            row["split_bitwise"] = {lvl: check_pack(
+                view, lvl, "syrk_upper split pass", failures)
+                for lvl in ("high", "default")}
         del got, want
     del work, bv, tall
 
@@ -276,53 +275,42 @@ def check_symmetric(g: torch.Tensor, what: str, failures: list) -> None:
         failures.append(f"{what}: G is not bitwise symmetric")
 
 
-def check_split(a: torch.Tensor, level: str, failures: list) -> bool:
-    """SYRK's split pass on the card against its plain version, bit for bit
-    (hi, and lo where there is one, padding included)."""
-    from capital_tpu_torch.ops.cuda_syrk import split_pack, split_pack_plain
+def check_pack(a: torch.Tensor, level: str, what: str, failures: list, *,
+               along_rows: bool = True, upper: bool = False) -> bool:
+    """The pack pass (ops/cuda_pack.py) on the card against its plain
+    version, bit for bit: hi, lo where there is one, the zero padding and,
+    with `upper`, the masked lower triangle."""
+    from capital_tpu_torch.ops.cuda_pack import pack, pack_plain
 
-    got, want = split_pack(a, level), split_pack_plain(a, level)
+    got = pack(a, level, along_rows=along_rows, upper=upper)
+    want = pack_plain(a, level, along_rows=along_rows, upper=upper)
     same = all((g is None and w is None) or (
-        g is not None and w is not None
-        and torch.equal(g.view(torch.int16), w.view(torch.int16)))
+        g is not None and w is not None and g.shape == w.shape
+        and torch.equal(g.view(torch.int16 if g.dtype == torch.bfloat16
+                               else torch.int32),
+                        w.view(torch.int16 if w.dtype == torch.bfloat16
+                               else torch.int32)))
         for g, w in zip(got, want))
-    print(f"[kernel] syrk_upper split pass {list(a.shape)} @{level}: "
-          f"bitwise equal to the plain version={same}", flush=True)
+    print(f"[kernel] {what} {list(a.shape)} @{level}: bitwise equal to the "
+          f"plain version={same}", flush=True)
     if not same:
-        failures.append(f"syrk_upper split pass @{level}: differs from "
-                        "split_pack_plain")
+        failures.append(f"{what} @{level}: differs from pack_plain")
     return same
 
 
 def check_packs(u: torch.Tensor, b: torch.Tensor, level: str,
                 failures: list) -> dict:
-    """The pack pass on the card against its plain version, bit for bit
-    (hi, lo where there is one, the zero padding and the masked lower
-    triangle), on ragged windows at unaligned offsets: U masked, read along
-    its rows (U^T) and along its columns; B unmasked, both ways. At 'high'
-    also the one-plane pack of 'default'."""
-    from capital_tpu_torch.ops.cuda_pack import pack, pack_plain
-
+    """TRMM's packs on ragged windows at unaligned offsets: U masked, read
+    along its rows (U^T) and along its columns; B unmasked, both ways. At
+    'high' also the one-plane pack of 'default'."""
     out = {}
     for lvl in ((level, "default") if level == "high" else (level,)):
         for name, a, upper in (("U", u, True), ("B", b, False)):
             for along_rows in (True, False):
-                got = pack(a, lvl, along_rows=along_rows, upper=upper)
-                want = pack_plain(a, lvl, along_rows=along_rows, upper=upper)
-                same = all((g is None and w is None) or (
-                    g is not None and w is not None and g.shape == w.shape
-                    and torch.equal(g.view(torch.int16) if g.dtype ==
-                                    torch.bfloat16 else g.view(torch.int32),
-                                    w.view(torch.int16) if w.dtype ==
-                                    torch.bfloat16 else w.view(torch.int32)))
-                    for g, w in zip(got, want))
                 label = (f"{lvl}/{name}/"
                          f"{'along_rows' if along_rows else 'along_cols'}")
-                out[label] = same
-                print(f"[kernel] pack {label} {list(a.shape)}: bitwise "
-                      f"equal to the plain version={same}", flush=True)
-                if not same:
-                    failures.append(f"pack {label}: differs from pack_plain")
+                out[label] = check_pack(a, lvl, f"pack {label}", failures,
+                                        along_rows=along_rows, upper=upper)
     return out
 
 
@@ -375,7 +363,7 @@ def bf16_syrk(gen, failures: list, add) -> None:
     ms = events_ms(k, 10)
     got = k()
     check_symmetric(got, "syrk_upper[bf16]@default", failures)
-    check_split(a, "default", failures)
+    check_pack(a, "default", "syrk_upper split pass", failures)
     plain_ms, want = once_ms(lambda: syrk_upper_plain(a, torch.bfloat16))
     lib_ms = events_ms(lambda: torch.matmul(a.T, a), 10)
     if not torch.equal(got, want):
@@ -626,15 +614,17 @@ def path_launches(row: dict, mains: list, lus: list) -> tuple[bool, int]:
     if kernel == "chol_inv":  # f32 at every precision: the headline run
         on = case == f"n={mains[0]['bc']}"
         return on, mains[0]["launches"]["chol_inv"] if on else 0
-    base, _, variant = (case or "").partition(":")
-    if kernel == "syrk_upper":
-        base, variant = None, case
-    if base == "R,trans" or variant in ("ragged", "fold", "bf16"):
+    got = next((mp["launches"] for mp in mains
+                if mp["precision"] == row["precision"]), None)
+    off_path = ("ragged", "fold", "bf16")
+    if kernel == "trmm_upper":
+        base, _, variant = case.partition(":")
+        if base == "R,trans" or variant in off_path:
+            return False, 0
+        return True, got["trmm_upper_by_case"][base]
+    if case in off_path:
         return False, 0
-    got = next(mp for mp in mains
-               if mp["precision"] == row["precision"])["launches"]
-    return True, (got["trmm_upper_by_case"][base] if kernel == "trmm_upper"
-                  else got[kernel])
+    return True, got[kernel]
 
 
 def main() -> int:

@@ -89,16 +89,19 @@ def _check_pack(got, xo, level):
         assert not np.any(g[o:]) and not np.any(g[:, k:])
 
 
+@pytest.mark.parametrize("fn", ["pack_plain", "pack"])
 @pytest.mark.parametrize("level", ["high", "default"])
 @pytest.mark.parametrize("along_rows", [True, False])
 @pytest.mark.parametrize("shape", [(64, 128), (100, 70)])
-def test_pack_matches_jax_split_f32(shape, along_rows, level):
+def test_pack_matches_jax_split_f32(shape, along_rows, level, fn):
     """hi[o, k] is _split_f32's hi of X[o, k] bit for bit (RNE on the bit
     pattern), lo at 'high' is bf16(x - hi), and the padding up to (128, 64)
-    multiples is zero, whichever way the source holds X."""
+    multiples is zero, whichever way the source holds X (along its rows:
+    SYRK's split pass), in the plain version and the wrapper's CPU
+    route."""
     x = _split_cases(shape)
-    got = cuda_pack.pack_plain(torch.from_numpy(x), level,
-                               along_rows=along_rows)
+    got = getattr(cuda_pack, fn)(torch.from_numpy(x), level,
+                                 along_rows=along_rows)
     _check_pack(got, _operand(x, along_rows, False), level)
 
 
