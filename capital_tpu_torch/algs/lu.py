@@ -67,9 +67,12 @@ class Config:
 def leaf_width(on_card: bool, ib: int | None = None) -> int:
     """Columns per leaf of the recursive panel.
 
-    On the card: the kernel's own budget, 128 columns (its pivot row sits
-    in shared memory; the strip stays in global memory, so any height
-    fits), or `ib` when CAPITAL_LU_WIDE_LEAF=0. The JAX package's rule
+    On the card: the kernel's own budget, 128 columns (its pivot row and
+    slots hold 128), or `ib` when CAPITAL_LU_WIDE_LEAF=0. Any height
+    fits: strips up to what the grid's shared memory holds (~58k rows at
+    128 columns on 132 SMs, every leaf of the LU paths) stay in shared
+    memory across the grid, taller ones in global memory
+    (ops/cuda_getrf.py::plan). The JAX package's rule
     here is a TPU scoped-VMEM budget that narrows tall strips; the card
     has no such limit. Elsewhere: `ib` (CAPITAL_LU_IB, default 64), the
     JAX package's CPU route."""

@@ -16,12 +16,15 @@ def reset_counters() -> None:
     blas.syrk.dot_calls = 0
     lapack.chol_inv.xla_calls = 0
     cuda_getrf.getrf_leaf.launches = 0
+    cuda_getrf.getrf_leaf.by_route = dict.fromkeys(
+        cuda_getrf.getrf_leaf.by_route, 0)
     cuda_getrf.getrf_leaf_plain.fallbacks = 0
     lapack.lu.library_calls = 0
 
 
 def counters() -> dict:
-    """Kernel launches since the last reset, with the fallbacks that
+    """Kernel launches since the last reset (`getrf_leaf_by_route` splits
+    the LU leaf's by route: resident, tall), with the fallbacks that
     bypassed a kernel (`trmm_dot`, `syrk_dot`, `chol_xla`; for LU
     `leaf_plain`, the plain leaf that CAPITAL_LU_LEAF=jax asks for, and
     `lu_library`, torch.linalg.lu_factor panels)."""
@@ -37,6 +40,7 @@ def counters() -> dict:
         "syrk_dot": blas.syrk.dot_calls,
         "chol_xla": lapack.chol_inv.xla_calls,
         "getrf_leaf": cuda_getrf.getrf_leaf.launches,
+        "getrf_leaf_by_route": dict(cuda_getrf.getrf_leaf.by_route),
         "leaf_plain": cuda_getrf.getrf_leaf_plain.fallbacks,
         "lu_library": lapack.lu.library_calls,
     }

@@ -12,31 +12,102 @@
 Elimination by masking (the Pallas kernel's step rule): column c takes the
 not-done row with the largest |.| as pivot, the smallest original row
 among ties (LAPACK's isamax picks the first row in swapped order, so the
-two agree up to ties); the other not-done rows get multipliers t / pivval
-(a zero pivot divides by 1) and a rank-1 update of the later columns,
-computed as a product followed by a subtraction.
+two agree up to ties), a NaN below every number; the other not-done rows
+get multipliers t / pivval (a zero pivot divides by 1) and a rank-1
+update of the later columns, computed as a product followed by a
+subtraction.
 
-On a CUDA tensor the cooperative kernel of `csrc/getrf_leaf.cu` runs it
-(f32, ib <= 128, any height, any row stride); on a CPU tensor
+On a CUDA tensor a kernel of `csrc/getrf_leaf.cu` runs it (f32,
+ib <= 128, any height, any row stride), by one of two routes that `plan`
+picks from (mm, ib, the card's SM count, its shared memory per block)
+before the launch:
+
+  resident: the strip lives in shared memory across the grid, one
+            cooperative CTA an SM, one exchange between the CTAs a column;
+            the kernel writes the strip back swapped, so a call is one
+            device launch. Every leaf of the LU paths takes it (132 CTAs
+            hold ~58k rows at ib = 128);
+  tall:     strips taller than that stay in global memory (one grid sync
+            and two block reductions a column), and the wrapper gathers
+            the strip by pj afterwards.
+
+A launch that fails raises; it never switches route. On a CPU tensor
 `getrf_leaf_plain` repeats the same step rule on tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from capital_tpu_torch.ops import _build
 
-MAX_IB = 128      # the kernel's widest strip (its pivot row in shared memory)
-_MAX_BLOCKS = 4096  # candidate slots per parity; the grid is far smaller
+MAX_IB = 128      # the kernels' widest strip (the pivot row in shared memory)
+_MAX_BLOCKS = 4096  # the tall route's candidate slots per parity
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p]
+RES_THREADS = 512       # threads of a resident CTA
+RES_MAX_BLOCKS = 160    # resident CTAs one warp polls (5 slots a lane)
+RES_STATIC_SMEM = 2048  # bytes kept for the resident kernel's static arrays
+# rows per CTA below which the resident route uses fewer CTAs
+RES_MIN_ROWS = 32
+_SLOT_WORDS = 4 + MAX_IB  # 8-byte words of a resident slot: head, row
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_TALL_ARGS = [_PTR, ctypes.c_longlong, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
+              _PTR, _PTR, _INT, _PTR]
+_RESIDENT_ARGS = [_PTR, ctypes.c_longlong, _INT, _INT, _INT, _INT, _INT,
+                  _PTR, _PTR, _PTR, _PTR]
+
+
+class Plan(NamedTuple):
+    """How one strip is launched: the route, and for the resident route
+    its CTAs, rows a CTA, threads a row, row pitch (floats) and dynamic
+    shared memory (bytes)."""
+
+    route: str
+    blocks: int = 0
+    rows_per: int = 0
+    split: int = 0
+    pitch: int = 0
+    smem: int = 0
+
+
+def plan(mm: int, ib: int, sms: int, smem_per_block: int,
+         min_rows: int = RES_MIN_ROWS) -> Plan:
+    """The route of an (mm, ib) strip on a card with `sms` SMs and
+    `smem_per_block` bytes of opt-in shared memory a block.
+
+    Resident when the rows of one CTA an SM fit its shared memory: a CTA
+    takes ceil(mm / min(sms, RES_MAX_BLOCKS)) rows, but at least
+    `min_rows` (short strips run on fewer CTAs). `split` threads share a
+    row (the largest power of two <= 32 that still gives every row a
+    thread group), and the row pitch is the smallest >= ib that is split
+    mod 32 words, so the threads of a warp touch distinct banks. A row
+    costs pitch floats plus its position."""
+    rows_per = max(-(-mm // min(sms, RES_MAX_BLOCKS)), min(mm, min_rows))
+    split = 1
+    while split < 32 and RES_THREADS // (2 * split) >= rows_per:
+        split *= 2
+    pitch = ib + (split - ib) % 32
+    smem = rows_per * (4 * pitch + 4)
+    if smem + RES_STATIC_SMEM > smem_per_block:
+        return Plan("tall")
+    return Plan("resident", -(-mm // rows_per), rows_per, split, pitch, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def limits(index: int) -> tuple[int, int]:
+    """(SM count, opt-in shared memory per block in bytes) of card `index`."""
+    fn = _build.function("getrf_leaf", "capital_getrf_limits", [_PTR, _PTR])
+    sms, smem = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(index):
+        err = fn(ctypes.addressof(sms), ctypes.addressof(smem))
+    _build.check("getrf_leaf", err, "getrf_leaf device limits")
+    return sms.value, smem.value
 
 
 def _check(strip: torch.Tensor) -> None:
@@ -58,26 +129,48 @@ def getrf_leaf(strip: torch.Tensor):
         raise ValueError(f"getrf_leaf kernel needs ib <= {MAX_IB} and a unit "
                          f"column stride, got {tuple(strip.shape)} with "
                          f"strides {strip.stride()}")
+    return launch(strip, plan(mm, ib, *limits(strip.device.index)))
+
+
+def launch(strip: torch.Tensor, how: Plan):
+    """Run the kernel of route `how.route` on a checked CUDA strip."""
+    mm, ib = strip.shape
     dev = strip.device
     pj = torch.empty(mm, dtype=torch.int32, device=dev)
-    invp = torch.empty(mm, dtype=torch.int32, device=dev)
-    done = torch.empty(mm, dtype=torch.int32, device=dev)
     piv = torch.empty(ib, dtype=torch.int32, device=dev)
-    slot_v = torch.empty(2 * _MAX_BLOCKS, dtype=torch.float32, device=dev)
-    slot_r = torch.empty(2 * _MAX_BLOCKS, dtype=torch.int32, device=dev)
-    fn = _build.function("getrf_leaf", "capital_getrf_leaf", _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(strip.data_ptr(), strip.stride(0), mm, ib, pj.data_ptr(),
-                 invp.data_ptr(), done.data_ptr(), piv.data_ptr(),
-                 slot_v.data_ptr(), slot_r.data_ptr(), _MAX_BLOCKS, stream)
-    _build.check("getrf_leaf", err, "getrf_leaf launch")
+        if how.route == "resident":
+            slots = torch.empty(2 * how.blocks * _SLOT_WORDS,
+                                dtype=torch.int64, device=dev)
+            fn = _build.function("getrf_leaf", "capital_getrf_resident",
+                                 _RESIDENT_ARGS)
+            err = fn(strip.data_ptr(), strip.stride(0), mm, ib, how.rows_per,
+                     how.split, how.pitch, pj.data_ptr(), piv.data_ptr(),
+                     slots.data_ptr(), stream)
+        else:
+            invp = torch.empty(mm, dtype=torch.int32, device=dev)
+            done = torch.empty(mm, dtype=torch.int32, device=dev)
+            slot_v = torch.empty(2 * _MAX_BLOCKS, dtype=torch.float32,
+                                 device=dev)
+            slot_r = torch.empty(2 * _MAX_BLOCKS, dtype=torch.int32,
+                                 device=dev)
+            fn = _build.function("getrf_leaf", "capital_getrf_tall",
+                                 _TALL_ARGS)
+            err = fn(strip.data_ptr(), strip.stride(0), mm, ib,
+                     pj.data_ptr(), invp.data_ptr(), done.data_ptr(),
+                     piv.data_ptr(), slot_v.data_ptr(), slot_r.data_ptr(),
+                     _MAX_BLOCKS, stream)
+    _build.check("getrf_leaf", err, f"getrf_leaf {how.route} launch")
     getrf_leaf.launches += 1
-    strip.copy_(strip.index_select(0, pj))
+    getrf_leaf.by_route[how.route] += 1
+    if how.route == "tall":
+        strip.copy_(strip.index_select(0, pj))
     return strip, pj, piv
 
 
 getrf_leaf.launches = 0
+getrf_leaf.by_route = {"resident": 0, "tall": 0}
 
 
 def getrf_leaf_plain(strip: torch.Tensor):

@@ -28,11 +28,15 @@
      (torch.profiler). Tolerance: relative Frobenius 1e-5 for each output
      (the leaf's R and Rinv apart), as the kernel and the plain version
      sum in different orders;
-   - the LU panel leaf (getrf_leaf) on two strips the LU path runs: the
-     tallest, 32768 x 128, and a ragged 17792 x 128, each a window of a
-     workspace with row stride 32768. pj and pivots must be identical and
-     the factor within relative Frobenius 1e-6 (the two share their
-     arithmetic); the library call is torch.linalg.lu_factor.
+   - the LU panel leaf (getrf_leaf) on the strips of LEAF_STRIPS: four
+     heights the LU path runs (32768, a ragged 17792, 2048 and 128 rows
+     of 128 columns), a tie-heavy and a zero-column 32768 x 128 strip,
+     each a window of a workspace with row stride 32768, all on the
+     resident route, and a 65536 x 128 strip on the tall route. pj and
+     pivots must be identical and the factor within relative Frobenius
+     1e-6 (the two share their arithmetic, so it is bitwise in fact);
+     each strip must take its route, and a resident call must be one
+     device launch; the library call is torch.linalg.lu_factor.
 3. cholinv main path: cholinv.factor at n = 32768 f32, 'high', base case
    512, complete_inv, then n = 8192 at 'highest'. Chunked residuals must
    be below 1e-5.
@@ -44,7 +48,8 @@
    with 2 refinement sweeps: solve residual below 1e-3.
    Every main path zeroes the launch counters just before it and reads
    them just after: each kernel of the path must have run the number of
-   times its recursion gives, and no fallback may have run. GFLOP/s and
+   times its recursion gives (every LU leaf on the resident route), and
+   no fallback may have run. GFLOP/s and
    the time ratio against the library call at the same n are printed.
 
 Exits non-zero on any failure, or when no CUDA device is present. The
@@ -54,9 +59,10 @@ record is written to chiprun_out/chip_smoke.json. A row's `launches` is
 the count of its kernel on the main path that runs it at the row's
 precision and input type and on the row's kind of operand; a row that no
 main path runs so (TRMM R,trans, the ragged, fold and bf16 TRMM and SYRK
-rows, the leaf at a block size other than the base case) has `on_path`
-false and 0 launches. A TRMM row's case is its side and transpose, with
-":ragged", ":512" or ":bf16" after it for the shapes beside 16384.
+rows, the leaf at a block size other than the base case, the LU leaf on
+the tall route) has `on_path` false and 0 launches. A TRMM row's case is
+its side and transpose, with ":ragged", ":512" or ":bf16" after it for the
+shapes beside 16384; an LU leaf row's case is its strip's label.
 """
 
 from __future__ import annotations
@@ -440,6 +446,7 @@ def main_path(n: int, level: str, failures: list) -> dict:
             "trmm_upper_by_case": {"L": inner, "L,trans": inner, "R": inner,
                                    "R,trans": 0},
             "trmm_dot": 0, "syrk_dot": 0, "chol_xla": 0, "getrf_leaf": 0,
+            "getrf_leaf_by_route": {"resident": 0, "tall": 0},
             "leaf_plain": 0, "lu_library": 0}
     if got != want:
         failures.append(f"main path n={n}: launch counts {got} != {want}")
@@ -470,20 +477,45 @@ def main_path(n: int, level: str, failures: list) -> dict:
     return rec
 
 
+# getrf_leaf strips: (label, rows, workspace columns, values, the route
+# the wrapper must take on a card with 132 SMs). Windows of
+# a workspace with the LU path's row stride 32768: the first leaf of
+# panel 0, the sixth leaf of panel 7, the last panel's first leaf, the
+# smallest leaf; integer values in {-2..2} (equal |.| compete across
+# CTAs) and a zero column at the tallest; and one strip taller than the
+# resident route holds (the tall route), on a (65536, 256) workspace.
+LEAF_STRIPS = (
+    ("32768x128", 32768, 32768, "randn", "resident"),
+    ("17792x128", 32768 - 7 * 2048 - 5 * 128, 32768, "randn", "resident"),
+    ("2048x128", 2048, 32768, "randn", "resident"),
+    ("128x128", 128, 32768, "randn", "resident"),
+    ("32768x128:ties", 32768, 32768, "ties", "resident"),
+    ("32768x128:zero_column", 32768, 32768, "zero_column", "resident"),
+    ("65536x128:tall", 65536, 256, "randn", "tall"))
+
+
 def leaf_phase(failures: list) -> list:
-    """getrf_leaf against its plain version on two strips of the LU path,
-    each a window of a workspace with the main path's row stride."""
+    """getrf_leaf against its plain version on the LEAF_STRIPS, each a
+    window of a workspace: pj and pivots bit for bit, the factor within
+    LEAF_TOL (bitwise is expected: the two share their arithmetic)."""
+    from capital_tpu_torch.ops import cuda_getrf
     from capital_tpu_torch.ops.cuda_getrf import getrf_leaf, getrf_leaf_plain
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(2)
-    n, nb, ib = LU_RUNS[0][0], LU_RUNS[0][1], 128
+    ib = 128
     rows = []
-    # the first leaf of panel 0, and the sixth leaf of panel 7
-    for mm in (n, n - 7 * nb - 5 * ib):
-        ws = torch.empty((mm, n), device=dev)
+    for label, mm, cols, values, route in LEAF_STRIPS:
+        ws = torch.empty((mm, cols), device=dev)
         win = ws[:, :ib]
-        src = torch.randn((mm, ib), generator=gen, device=dev)
+        if values == "ties":
+            src = torch.randint(-2, 3, (mm, ib), generator=gen, device=dev,
+                                dtype=torch.float32)
+        else:
+            src = torch.randn((mm, ib), generator=gen, device=dev)
+        if values == "zero_column":
+            src[:, 5] = 0.0
+        how = cuda_getrf.plan(mm, ib, *cuda_getrf.limits(0))
 
         def restore():
             win.copy_(src)
@@ -492,36 +524,45 @@ def leaf_phase(failures: list) -> list:
             restore()
             return getrf_leaf(win)
 
-        # the wrapper's time (launch + row gather by pj) without the
-        # copy that restores the input between calls
+        # the wrapper's time (the launch and, on the tall route, the row
+        # gather by pj) without the copy that restores the input
         ms = events_ms(k, 5) - events_ms(restore, 5)
         _, pj, piv = k()
         plain_ms, (want, pj_p, piv_p) = once_ms(
             lambda: getrf_leaf_plain(src.clone()))
-        lib_ms = events_ms(lambda: torch.linalg.lu_factor(src), 3)
+        lib_ms = events_ms(lambda: torch.linalg.lu_factor_ex(src), 3)
         rel, mae = compare(win, want)
         same = torch.equal(pj, pj_p) and torch.equal(piv, piv_p)
-        launches = device_launches(k)
+        bitwise = torch.equal(win.view(torch.int32), want.view(torch.int32))
+        launches = device_launches(k) - device_launches(restore)
         b_ms, b_by = bound(mm * ib * ib, 2 * mm * ib * 4, PEAK_F32)
-        row = {"name": f"getrf_leaf[{mm}x{ib}]", "kernel": "getrf_leaf",
-               "case": None, "route": "cuda", "source": SOURCE["getrf_leaf"],
+        row = {"name": f"getrf_leaf[{label}]", "kernel": "getrf_leaf",
+               "case": label, "route": "cuda", "source": SOURCE["getrf_leaf"],
                "replaces": REPLACES["getrf_leaf"], "precision": "highest",
-               "shape": [mm, ib], "grid_syncs": ib, "launches": None,
+               "shape": [mm, ib], "leaf_route": how.route,
+               "plan": how._asdict(), "launches": None,
                "max_abs_err": mae, "rel_err": rel, "pivots_equal": same,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-               "bound_by": b_by, "library_ms": lib_ms,
+               "factor_bitwise": bitwise, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                "device_launches_per_call": launches}
         rows.append(row)
-        print(f"[kernel] {row['name']}: pj/pivots equal={same} "
-              f"rel_err={rel:.3e} max_abs_err={mae:.3e} kernel_ms={ms:.3f} "
+        print(f"[kernel] {row['name']}: route={how.route} "
+              f"ctas={how.blocks} rows_per_cta={how.rows_per} "
+              f"pj/pivots equal={same} factor bitwise={bitwise} "
+              f"rel_err={rel:.3e} max_abs_err={mae:.3e} kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
-              f"bound_ms={b_ms:.4f} ({b_by}) grid syncs={ib} "
+              f"bound_ms={b_ms:.4f} ({b_by}) "
               f"device launches per call={launches}", flush=True)
         if not same:
             failures.append(f"{row['name']}: pj/pivots differ from the "
                             "plain version")
         if not rel <= LEAF_TOL:
             failures.append(f"{row['name']}: rel_err {rel:.3e} > {LEAF_TOL}")
+        if how.route != route:
+            failures.append(f"{row['name']}: took the {how.route} route")
+        if how.route == "resident" and launches != 1:
+            failures.append(f"{row['name']}: {launches} device launches a "
+                            "call on the resident route")
         del ws, win, src, want
     torch.cuda.empty_cache()
     return rows
@@ -557,6 +598,7 @@ def lu_path(n: int, nb: int, lookahead: bool, k_rhs: int,
     want = {k: (dict.fromkeys(v, 0) if isinstance(v, dict) else 0)
             for k, v in got.items()}
     want["getrf_leaf"] = leaf_launches
+    want["getrf_leaf_by_route"]["resident"] = leaf_launches
     if got != want:
         failures.append(f"LU n={n}: launch counts {got} != {want}")
     is_perm = torch.equal(torch.sort(perm).values,
@@ -609,7 +651,9 @@ def path_launches(row: dict, mains: list, lus: list) -> tuple[bool, int]:
     the base case; the LU leaf's strips), and that run's launches, else 0.
     TRMM's R,trans case is on no ported path yet (QDWH uses it)."""
     kernel, case = row["kernel"], row["case"]
-    if kernel == "getrf_leaf":
+    if kernel == "getrf_leaf":  # no leaf of the LU paths is that tall
+        if row["leaf_route"] == "tall":
+            return False, 0
         return True, lus[0]["launches"]["getrf_leaf"]
     if kernel == "chol_inv":  # f32 at every precision: the headline run
         on = case == f"n={mains[0]['bc']}"
