@@ -2,9 +2,10 @@
 
 Same module layout and public names as the JAX package (`Grid`,
 `DistMatrix`, `cholinv.Config`, `cholinv.factor`,
-`validate.cholesky_residual`, ...). This slice covers the single-device
-recursive Cholesky + inverse; its three TPU kernels (TRMM, SYRK, the
-fused leaf) are hand-written CUDA kernels for Hopper (sm_90a) under
+`validate.cholesky_residual`, ...). It covers, on one device, the
+recursive Cholesky + inverse, LU with partial pivoting and CholeskyQR2;
+their four TPU kernels (TRMM, SYRK, the fused Cholesky leaf, the LU
+panel leaf) are hand-written CUDA kernels for Hopper (sm_90a) under
 `csrc/`, built with nvcc at first use.
 
 Entry points run on cuda:0 unless the caller passes a CPU device. It

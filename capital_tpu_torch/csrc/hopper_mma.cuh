@@ -68,16 +68,19 @@ inline int pad_up(int x, int q) { return (x + q - 1) / q * q; }
 constexpr int W_BK = 64;  // contraction rows per wgmma stage: a 128-byte row
 enum PackMode { PACK_HI = 0, PACK_HI_LO = 1, PACK_F32 = 2 };
 
-// One 32 x 32 block of X per CTA (blockIdx.x along k, .y along o), read
-// along the source's rows and written along the packed copy's rows through
-// a shared tile (33 columns: both walks are free of bank conflicts).
+// One 32 x 32 block of X per CTA, numbered along k first (blockIdx.x =
+// kb + (k_pad / 32) * ob: a 1-D grid, since o_pad / 32 passes gridDim.y's
+// 65535 at 2^21 rows), read along the source's rows and written along the
+// packed copy's rows through a shared tile (33 columns: both walks are
+// free of bank conflicts).
 template <typename TI, typename TP, bool LO>
 __global__ void pack_kernel(const TI* a, long long lda, int rows, int cols,
                             int along_rows, int upper, TP* hi, TP* lo,
                             int o_pad, int k_pad) {
   constexpr bool KMAJOR = std::is_same<TP, __nv_bfloat16>::value;
   __shared__ float tile[32][33];
-  const int k0 = blockIdx.x * 32, o0 = blockIdx.y * 32;
+  const int nkb = k_pad / 32;
+  const int k0 = (blockIdx.x % nkb) * 32, o0 = (blockIdx.x / nkb) * 32;
   const int tx = threadIdx.x, ty = threadIdx.y;
   // tile[p][q] = a[r0 + p][c0 + q]
   const int r0 = along_rows ? k0 : o0, c0 = along_rows ? o0 : k0;
@@ -121,7 +124,9 @@ inline int pack(int bf16_in, int mode, int along_rows, int upper,
     return static_cast<int>(cudaErrorInvalidValue);
   const int o_pad = pad_up(along_rows ? cols : rows, T);
   const int k_pad = pad_up(along_rows ? rows : cols, W_BK);
-  const dim3 grid(k_pad / 32, o_pad / 32), block(32, 8);
+  const long long blocks = (long long)(k_pad / 32) * (o_pad / 32);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks)), block(32, 8);
   auto* h = static_cast<__nv_bfloat16*>(out);
   auto* l = h + static_cast<size_t>(o_pad) * k_pad;
   if (bf16_in)

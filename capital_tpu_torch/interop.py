@@ -1,9 +1,9 @@
 """Carry state across from the JAX package, as numpy.
 
-cholinv has no weights: its state is the operand and the configuration.
-Both cross as plain data, so this module imports nothing of the JAX
-package: a caller hands over `np.asarray(dist_matrix.data)` and
-`dataclasses.asdict(cfg)`.
+cholinv and cacqr have no weights: their state is the operand and the
+configuration. Both cross as plain data, so this module imports nothing
+of the JAX package: a caller hands over `np.asarray(dist_matrix.data)`
+and `dataclasses.asdict(cfg)`.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from capital_tpu_torch.algs import cholinv
+from capital_tpu_torch.algs import cacqr, cholinv
 from capital_tpu_torch.grid import default_device
 from capital_tpu_torch.matrix import DistMatrix, Structure
 
@@ -29,16 +29,31 @@ def dist_matrix_from_numpy(data, shape, structure_value="rect",
                                         structure_value)))
 
 
+def _check_fields(cls, d: dict) -> None:
+    unknown = set(d) - {f.name for f in dataclasses.fields(cls)}
+    if unknown:
+        raise ValueError(f"unknown {cls.__module__.rsplit('.', 1)[-1]}."
+                         f"Config fields: {sorted(unknown)}")
+
+
 def config_from_dict(d: dict) -> cholinv.Config:
     """The port's cholinv.Config from `dataclasses.asdict` of the JAX one.
     base_policy may be the enum member or its string value; an unknown
     field raises."""
-    names = {f.name for f in dataclasses.fields(cholinv.Config)}
-    unknown = set(d) - names
-    if unknown:
-        raise ValueError(f"unknown cholinv.Config fields: {sorted(unknown)}")
+    _check_fields(cholinv.Config, d)
     kw = dict(d)
     if "base_policy" in kw:
         kw["base_policy"] = getattr(kw["base_policy"], "value",
                                     kw["base_policy"])
     return cholinv.Config(**kw)
+
+
+def cacqr_config_from_dict(d: dict) -> cacqr.Config:
+    """The port's cacqr.Config from `dataclasses.asdict` of the JAX one;
+    the nested `chol` dict goes through config_from_dict. An unknown
+    field, here or in `chol`, raises."""
+    _check_fields(cacqr.Config, d)
+    kw = dict(d)
+    if "chol" in kw:
+        kw["chol"] = config_from_dict(kw["chol"])
+    return cacqr.Config(**kw)

@@ -116,3 +116,29 @@ def identity(grid: Grid, n: int, dtype=torch.float32) -> DistMatrix:
     pn = _pad_up(n, grid.d1 if grid.is_square else grid.num_devices)
     return DistMatrix(torch.eye(pn, dtype=dtype, device=grid.device), (n, n),
                       Structure.RECT)
+
+
+def debug(grid: Grid, m: int, n: int, dtype=torch.float32) -> DistMatrix:
+    """Entry (i, j) = i + m*j, pad region zero: globally addressable
+    values for layout tests."""
+    pm, pn = _pad_up(m, grid.d1), _pad_up(n, grid.d2)
+    i = torch.arange(pm, device=grid.device)[:, None]
+    j = torch.arange(pn, device=grid.device)[None, :]
+    v = (i + m * j).to(dtype)
+    v[m:, :] = 0
+    v[:, n:] = 0
+    return DistMatrix(v, (m, n), Structure.RECT)
+
+
+def tall_skinny(grid: Grid, m: int, n: int, key, dtype=torch.float32,
+                col_scale: bool = True) -> DistMatrix:
+    """Tall-skinny operand in the 1D layout (rows over all devices):
+    Uniform(-0.5, 0.5), times the column scale linspace(1, 2) when
+    col_scale (graded column magnitudes make orthogonality non-trivial),
+    rows >= m zero. Columns are not padded."""
+    pm = _pad_up(m, grid.num_devices)
+    u = _uniform(grid, (pm, n), key, dtype)
+    if col_scale:
+        u.mul_(torch.linspace(1.0, 2.0, n, dtype=dtype, device=grid.device))
+    u[m:, :] = 0
+    return DistMatrix(u, (m, n), Structure.RECT)

@@ -10,10 +10,14 @@ Conventions:
 method='tri' runs the hand-written triangle kernels (ops/cuda_trmm.py,
 ops/cuda_syrk.py; their plain versions on a CPU tensor), 'dot' a masked
 plain product. 'auto' takes CAPITAL_TRMM_METHOD / CAPITAL_SYRK_METHOD if
-set, else 'tri' on a GPU for the f32 cases. The bf16 gates below (formQ-
-like side='R' shapes stay on 'dot'; bf16 syrk needs n >= 2048) were
-measured on a TPU and are kept as written until they are measured on the
-card.
+set, else 'tri' on a GPU, but for two bf16 gates: a formQ-like side='R'
+TRMM (B more than 4x taller than U) and a SYRK stay on 'dot' below n =
+BF16_TRI_MIN_N (U's side; A's columns). On the card a bf16 plain product
+is an f32 product of bf16-valued copies, without tensor cores: at cacqr's
+2^22 x 1024 bf16 factor the kernels took 140-170 ms against 520-541 ms
+on 'dot' at each of the three bf16 gates, cacqr's Gram among them
+(PERF.md, K8). Narrower bf16 operands were not measured there and keep
+'dot', as the JAX package does below its TPU threshold of 2048.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import torch
 
 from capital_tpu_torch.ops.cuda_trmm import window as _slice_window
 from capital_tpu_torch.ops.precision import dot as _pdot
+
+BF16_TRI_MIN_N = 1024
 
 
 def _dot(a, b):
@@ -59,7 +65,7 @@ def trmm(a, b, *, side="L", uplo="U", trans_a=False, diag="N", alpha=1.0,
     b_rows = b_window[2] if b_window is not None else b.shape[0]
     if method == "auto":
         formq_like = (a.dtype == torch.bfloat16 and side == "R"
-                      and a_n < 2048 and b_rows > 4 * a_n)
+                      and a_n < BF16_TRI_MIN_N and b_rows > 4 * a_n)
         method = os.environ.get("CAPITAL_TRMM_METHOD") or (
             "tri" if _on_gpu(b, platform) and not formq_like else "dot")
     if (method == "tri" and uplo == "U" and diag == "N"
@@ -94,7 +100,7 @@ def syrk(a, *, c=None, uplo="U", trans="T", alpha=1.0, beta=0.0,
     a_cols = a_window[3] if a_window is not None else a.shape[-1]
     if method == "auto":
         dtype_ok = a.dtype == torch.float32 or (
-            a.dtype == torch.bfloat16 and a_cols >= 2048)
+            a.dtype == torch.bfloat16 and a_cols >= BF16_TRI_MIN_N)
         method = os.environ.get("CAPITAL_SYRK_METHOD") or (
             "tri" if _on_gpu(a, platform) and dtype_ok else "dot")
     if (method == "tri" and trans == "T"

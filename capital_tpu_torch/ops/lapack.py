@@ -17,7 +17,9 @@ method:
             return convention (algs/lu.py's CAPITAL_LU_PANEL=xla and CPU
             panel route).
 
-geqrf/orgqr/qr wait for the CholeskyQR slice.
+  geqrf(A) -> (packed, tau), orgqr(packed, tau) -> Q, qr(A) -> (Q, R):
+            Householder QR by torch.geqrf / householder_product, as the
+            JAX package takes it from XLA's stock QR.
 """
 
 from __future__ import annotations
@@ -58,6 +60,27 @@ def trtri(t: torch.Tensor, lower: bool = False) -> torch.Tensor:
     eye = torch.eye(t32.shape[-1], dtype=t32.dtype, device=t32.device)
     return torch.linalg.solve_triangular(t32, eye, upper=not lower,
                                          left=True).to(t.dtype)
+
+
+def geqrf(a: torch.Tensor):
+    """Householder QR in LAPACK's packed form: (packed, tau), reflectors
+    below the diagonal and R on and above it, in A's (m, n) layout.
+    Batch dims supported."""
+    return torch.geqrf(a)
+
+
+def orgqr(packed: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    """The reduced (m, n) Q with orthonormal columns from geqrf's packed
+    reflectors."""
+    return torch.linalg.householder_product(packed, tau)
+
+
+def qr(a: torch.Tensor):
+    """Reduced QR through the geqrf/orgqr pair: (Q (m, n), R (n, n)).
+    Batch dims supported."""
+    packed, tau = geqrf(a)
+    n = a.shape[-1]
+    return orgqr(packed, tau), torch.triu(packed[..., :n, :])
 
 
 def chol_inv(a: torch.Tensor, lower: bool = False, method: str = "auto",

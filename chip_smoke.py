@@ -46,11 +46,26 @@
    the same operand) is printed beside it. Then n = 8192, nb = 1024 with
    CAPITAL_LU_LOOKAHEAD=1 and lu.solve_factored on 256 right-hand sides
    with 2 refinement sweeps: solve residual below 1e-3.
+5. cacqr main path: CholeskyQR2 (cacqr.factor_1d, f32) of
+   matrix.tall_skinny at m = 2^20, n = 1024, 'highest' (the JAX package's
+   `bench.cacqr` default), then m = 2^19, n = 4096, 'high', Q formed in
+   place in 8 row chunks; two calls each, on fresh operands. Per factor
+   SYRK runs 2 times, TRMM side='R' 2 x chunks and side='L' once, the
+   Cholesky leaf twice at n = 1024 (at n = 4096 the Gram Cholesky is
+   torch.linalg's, twice, by design). Orthogonality and residual, at
+   'highest', must be below 1e-5; the library call is
+   torch.linalg.qr(A, mode='reduced') on the same operand. The kernel
+   phase adds SYRK and TRMM side='R' rows at this path's shapes (the Gram
+   of 2^20 x 1024 at 'highest' and of 2^19 x 4096 at 'high'; formQ on
+   2^20 x 1024 and on the 2^16 x 4096 chunk), timed at the full shape and
+   held against the plain version on the first and (TRMM) the last
+   CACQR_CHECK_ROWS rows, deep enough that SYRK's fold fires; and TRMM's
+   pack of a B taller than 2^21 rows, bitwise against its plain version.
    Every main path zeroes the launch counters just before it and reads
    them just after: each kernel of the path must have run the number of
    times its recursion gives (every LU leaf on the resident route), and
    no fallback may have run. GFLOP/s and
-   the time ratio against the library call at the same n are printed.
+   the time ratio against the library call at the same shape are printed.
 
 Exits non-zero on any failure, or when no CUDA device is present. The
 last three lines are the card's name and power limit, a JSON object with
@@ -59,10 +74,12 @@ record is written to chiprun_out/chip_smoke.json. A row's `launches` is
 the count of its kernel on the main path that runs it at the row's
 precision and input type and on the row's kind of operand; a row that no
 main path runs so (TRMM R,trans, the ragged, fold and bf16 TRMM and SYRK
-rows, the leaf at a block size other than the base case, the LU leaf on
-the tall route) has `on_path` false and 0 launches. A TRMM row's case is
-its side and transpose, with ":ragged", ":512" or ":bf16" after it for the
-shapes beside 16384; an LU leaf row's case is its strip's label.
+rows, the leaf at a block size that neither cholinv's base case nor
+cacqr's Gram takes, the LU leaf on the tall route) has `on_path` false
+and 0 launches. A TRMM row's case is its side and transpose, with
+":ragged", ":512", ":bf16" or ":cacqr" after it for the shapes beside
+16384; SYRK's cacqr rows have case "cacqr"; an LU leaf row's case is its
+strip's label.
 """
 
 from __future__ import annotations
@@ -97,6 +114,13 @@ LEAF_NS = (128, 256, 512, 1024)  # the Cholesky leaf's block sizes
 # LU main path runs: (n, nb, lookahead, right-hand sides); f32 'highest'
 LU_RUNS = ((32768, 2048, False, 0), (8192, 1024, True, 256))
 LU_TOL, LU_SOLVE_TOL, LEAF_TOL = 5e-4, 1e-3, 1e-6
+# cacqr main path runs: (m, n, precision, formq_chunks); CholeskyQR2, f32.
+# The first is the JAX package's `bench.cacqr` default, the second its
+# 2^19 x 4096 'high' run with Q formed in place (BENCH_LOCAL.md:39).
+CACQR_RUNS = ((1 << 20, 1024, "highest", 1), (1 << 19, 4096, "high", 8))
+CACQR_CHECK_ROWS = 1 << 15  # 64 row chunks of 512: SYRK's fold fires
+TALL_PACK_ROWS = (1 << 21) + 4096  # > 65535 pack blocks of 32 rows
+QR_TOL = 1e-5
 
 
 def smi() -> str:
@@ -268,12 +292,73 @@ def kernel_phase(level: str, failures: list) -> list:
                 for lvl in ("high", "default")}
         del got, want
     del work, bv, tall
+    cacqr_rows(level, gen, failures, add)
 
     if level == "high":
         bf16_syrk(gen, failures, add)
         bf16_trmm(gen, failures, add)
         leaf_rows(gen, add)
     return rows
+
+
+def cacqr_rows(level: str, gen, failures: list, add) -> None:
+    """SYRK (the Gram) and TRMM side='R' (formQ) at the cacqr main path's
+    shapes at this level: 2^20 x 1024 at 'highest'; at 'high' the Gram of
+    2^19 x 4096 and formQ on its 2^16 x 4096 chunk. Timed at the full
+    shape; the plain versions (slow at 2^20 rows) are run and timed on the
+    first CACQR_CHECK_ROWS rows, and for TRMM also the last, held against
+    the kernel's output on those rows. G is bitwise symmetric at both
+    depths."""
+    from capital_tpu_torch.ops.cuda_syrk import syrk_upper, syrk_upper_plain
+    from capital_tpu_torch.ops.cuda_trmm import trmm_upper, trmm_upper_plain
+
+    m, n, _, chunks = next(r for r in CACQR_RUNS if r[2] == level)
+    passes, peak = (1, PEAK_F32) if level == "highest" else (3, PEAK_BF16)
+    c = CACQR_CHECK_ROWS
+    a = torch.rand((m, n), generator=gen, device=gen.device) - 0.5
+
+    def ks(x=a):
+        return syrk_upper(x, matmul_precision=level)
+
+    ms = events_ms(ks, 3)
+    check_symmetric(ks(), f"syrk_upper[cacqr]@{level}", failures)
+    got = ks(a[:c])
+    check_symmetric(got, f"syrk_upper[cacqr]@{level} ({c} rows)", failures)
+    plain_ms, want = once_ms(lambda: syrk_upper_plain(a[:c], prec=level))
+    lib_ms = events_ms(lambda: torch.matmul(a.T, a), 3)
+    row = add("syrk_upper", "cacqr", [m, n], got, plain_ms, want, ms, lib_ms,
+              passes * m * n * (n + 1), 4 * (m * n + n * n), peak)
+    row["plain_shape"] = [c, n]
+    del got, want
+
+    mq = m // chunks  # one formQ call's rows
+    b = a[:mq]
+    u = torch.triu(torch.rand((n, n), generator=gen, device=gen.device))
+    u.diagonal().add_(1.0)
+
+    def kt(x=b):
+        return trmm_upper(u, x, side="R", matmul_precision=level)
+
+    ms = events_ms(kt, 3)
+    out = kt()
+    plain_ms, want = once_ms(lambda: trmm_upper_plain(u, b[:c], side="R",
+                                                      prec=level))
+    want_end = trmm_upper_plain(u, b[-c:], side="R", prec=level)
+    lib_ms = events_ms(lambda: torch.matmul(b, u), 3)
+    row = add("trmm_upper", "R:cacqr", [mq, n], (out[:c], out[-c:]),
+              plain_ms, (want, want_end), ms, lib_ms,
+              passes * mq * n * (n + 1), 4 * (n * (n + 1) / 2 + 2 * n * mq),
+              peak)
+    row["plain_shape"] = [c, n]
+    del a, b, out, want, want_end
+    # B's pack along its rows, o = rows beyond 65535 blocks of 32 (a 2^22-
+    # row formQ without chunks): bitwise the plain version
+    tall = torch.rand((TALL_PACK_ROWS, 128), generator=gen,
+                      device=gen.device) - 0.5
+    row["pack_tall_bitwise"] = check_pack(
+        tall, level, "pack B (tall)", failures, along_rows=False)
+    del tall
+    torch.cuda.empty_cache()
 
 
 def check_symmetric(g: torch.Tensor, what: str, failures: list) -> None:
@@ -445,7 +530,8 @@ def main_path(n: int, level: str, failures: list) -> dict:
     want = {"trmm_upper": 3 * inner, "syrk_upper": inner, "chol_inv": leaves,
             "trmm_upper_by_case": {"L": inner, "L,trans": inner, "R": inner,
                                    "R,trans": 0},
-            "trmm_dot": 0, "syrk_dot": 0, "chol_xla": 0, "getrf_leaf": 0,
+            "trmm_dot": 0, "syrk_dot": 0, "gram_dot": 0, "chol_xla": 0,
+            "getrf_leaf": 0,
             "getrf_leaf_by_route": {"resident": 0, "tall": 0},
             "leaf_plain": 0, "lu_library": 0}
     if got != want:
@@ -644,20 +730,83 @@ def lu_path(n: int, nb: int, lookahead: bool, k_rhs: int,
     return rec
 
 
-def path_launches(row: dict, mains: list, lus: list) -> tuple[bool, int]:
+def cacqr_path(m: int, n: int, level: str, chunks: int,
+               failures: list) -> dict:
+    """CholeskyQR2 (cacqr.factor_1d) of tall_skinny(m, n, seed 0), f32 at
+    `level`, two calls on fresh operands; validated at 'highest'."""
+    from capital_tpu_torch import Grid, matrix, validate
+    from capital_tpu_torch.algs import cacqr
+    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops.precision import default_matmul_precision
+
+    grid = Grid.square(c=1, d=1)
+    cfg = cacqr.Config(num_iter=2, formq_chunks=chunks)
+
+    def operand():  # factor_1d writes Q over it when chunks > 1
+        return matrix.tall_skinny(grid, m, n, 0).data
+
+    a = operand()
+    with default_matmul_precision(level):
+        reset_counters()
+        secs, (q, r) = once_ms(lambda: cacqr.factor_1d(grid, a, cfg))
+        got = counters()
+        del q, r, a
+        a = operand()
+        secs2, (q, r) = once_ms(lambda: cacqr.factor_1d(grid, a, cfg))
+        del a
+    best_ms = min(secs, secs2)
+    leaf = n <= 1024
+    want = {k: (dict.fromkeys(v, 0) if isinstance(v, dict) else 0)
+            for k, v in got.items()}
+    want.update(syrk_upper=2, trmm_upper=2 * chunks + 1,
+                chol_inv=2 if leaf else 0, chol_xla=0 if leaf else 2)
+    want["trmm_upper_by_case"].update(R=2 * chunks, L=1)
+    if got != want:
+        failures.append(f"cacqr {m}x{n}: launch counts {got} != {want}")
+    orth = float(validate.qr_orthogonality(grid, q))
+    a = operand()
+    res = float(validate.qr_residual(grid, a, q, r))
+    del q, r
+    if not (orth < QR_TOL and res < QR_TOL):  # also fails on NaN
+        failures.append(f"cacqr {m}x{n}: orthogonality {orth} / residual "
+                        f"{res} not below {QR_TOL}")
+    torch.cuda.empty_cache()
+    once_ms(lambda: torch.linalg.qr(a[:4096], mode="reduced"))  # warm up
+    lib_ms, out = once_ms(lambda: torch.linalg.qr(a, mode="reduced"))
+    del out, a
+    torch.cuda.empty_cache()
+    flops = 2 * (4 * m * n * n + 2 * n**3 / 3)
+    rec = {"m": m, "n": n, "precision": level, "formq_chunks": chunks,
+           "ms": [secs, secs2], "gflops": flops / best_ms / 1e6,
+           "library_ms": lib_ms, "vs_library": lib_ms / best_ms,
+           "orthogonality": orth, "residual": res, "launches": got}
+    print(f"[cacqr] {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def path_launches(row: dict, mains: list, lus: list,
+                  qrs: list) -> tuple[bool, int]:
     """(on_path, launches) of a kernel row: whether a main path runs its
     kernel at its precision, input type and kind of operand (the
-    recursion's 128-aligned windows at most 32 x 512 rows deep; the leaf at
-    the base case; the LU leaf's strips), and that run's launches, else 0.
-    TRMM's R,trans case is on no ported path yet (QDWH uses it)."""
+    recursion's 128-aligned windows at most 32 x 512 rows deep; cacqr's
+    Gram and formQ; the leaf at cholinv's base case or cacqr's n; the LU
+    leaf's strips), and that run's launches, else 0. TRMM's R,trans case
+    is on no ported path yet (QDWH uses it)."""
     kernel, case = row["kernel"], row["case"]
     if kernel == "getrf_leaf":  # no leaf of the LU paths is that tall
         if row["leaf_route"] == "tall":
             return False, 0
         return True, lus[0]["launches"]["getrf_leaf"]
-    if kernel == "chol_inv":  # f32 at every precision: the headline run
-        on = case == f"n={mains[0]['bc']}"
-        return on, mains[0]["launches"]["chol_inv"] if on else 0
+    if kernel == "chol_inv":  # f32 at every precision
+        if case == f"n={mains[0]['bc']}":  # the cholinv headline run
+            return True, mains[0]["launches"]["chol_inv"]
+        qr = next((q for q in qrs if case == f"n={q['n']}"), None)
+        return (True, qr["launches"]["chol_inv"]) if qr else (False, 0)
+    if case in ("cacqr", "R:cacqr"):
+        got = next(q["launches"] for q in qrs
+                   if q["precision"] == row["precision"])
+        return True, (got["trmm_upper_by_case"]["R"]
+                      if kernel == "trmm_upper" else got[kernel])
     got = next((mp["launches"] for mp in mains
                 if mp["precision"] == row["precision"]), None)
     off_path = ("ragged", "fold", "bf16")
@@ -693,12 +842,13 @@ def main() -> int:
     rows += leaf_phase(failures)
     mains = [main_path(n, level, failures) for n, level in MAIN_RUNS]
     lus = [lu_path(*run, failures) for run in LU_RUNS]
+    qrs = [cacqr_path(*run, failures) for run in CACQR_RUNS]
     for row in rows:
-        row["on_path"], row["launches"] = path_launches(row, mains, lus)
+        row["on_path"], row["launches"] = path_launches(row, mains, lus, qrs)
         if row["on_path"] and not row["launches"]:
             failures.append(f"{row['name']} never launched on the main path")
     result = {"card": card, "kernels": rows, "main": mains, "lu": lus,
-              "failures": failures}
+              "cacqr": qrs, "failures": failures}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
