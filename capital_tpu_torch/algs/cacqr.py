@@ -43,11 +43,12 @@ class Config:
                   and unpacks G).
     local_thresh: largest n that `factor` sends to the 1D path.
     base_method:  the Gram Cholesky of the 1D path (lapack.chol_inv).
-    formq_chunks: > 1 forms Q = A Rinv in A's own storage, row chunk by
-                  row chunk (row i of Q needs only row i of A): peak memory
-                  A + one chunk instead of A + Q. The first sweep then
-                  overwrites the caller's A, as the JAX package's bench
-                  donates it. 1 = one out-of-place TRMM.
+    formq_chunks: > 1 forms Q = A Rinv in place, row chunk by row chunk
+                  (row i of Q needs only row i of A): over a copy of A,
+                  or over the caller's A itself when factor_1d is given
+                  overwrite_a=True (peak memory A + one chunk instead of
+                  A + Q, as the JAX package's bench gets by donating A).
+                  1 = one out-of-place TRMM.
     gram_kernel:  'tri' (the SYRK kernel), 'dot' (a plain product) or
                   'auto' (see _resolve_gram_kernel).
     chol:         the nested cholinv config (3D path).
@@ -94,15 +95,10 @@ def _resolve_gram_kernel(kernel: str, dtype, platform: str,
 
 
 def _local_gram(a: torch.Tensor, kernel: str) -> torch.Tensor:
-    """A^T A in f32: the SYRK kernel for 'tri', else a plain product (the
-    `gram_dot` fallback of ops.counters())."""
+    """A^T A in f32: the SYRK kernel for 'tri', else blas.gram_dot."""
     if kernel == "tri":
         return syrk_upper(a)
-    _local_gram.dot_calls += 1
-    return _pdot(a.T, a)
-
-
-_local_gram.dot_calls = 0
+    return blas.gram_dot(a)
 
 # The packed triangle is tile-granular: the upper T x T tiles (i <= j)
 # stacked into one (npairs, T, T) tensor, npairs * T^2 = n (n + T) / 2
@@ -159,7 +155,8 @@ def gram_1d(grid: Grid, a: torch.Tensor, policy: str = "allreduce",
 # 1D path
 # ---------------------------------------------------------------------------
 
-def _sweep_1d(grid: Grid, a: torch.Tensor, cfg: Config):
+def _sweep_1d(grid: Grid, a: torch.Tensor, cfg: Config,
+              overwrite_a: bool):
     m, n = a.shape
     p = grid.num_devices
     esz = a.element_size()
@@ -178,7 +175,8 @@ def _sweep_1d(grid: Grid, a: torch.Tensor, cfg: Config):
     with tracing.phase("CQR::formQ"):
         tracing.record("trmm_local", flops=2.0 * m * n * n / p)
         if cfg.formq_chunks > 1:
-            q = _formq_inplace(grid, a, rinv, cfg.formq_chunks)
+            q = _formq_inplace(grid, a if overwrite_a else a.clone(), rinv,
+                               cfg.formq_chunks)
         else:
             q = blas.trmm(rinv, a, side="R", uplo="U",
                           platform=grid.platform)
@@ -206,15 +204,20 @@ def _formq_inplace(grid: Grid, a: torch.Tensor, rinv: torch.Tensor,
     return a
 
 
-def factor_1d(grid: Grid, a, cfg: Config = Config()):
+def factor_1d(grid: Grid, a, cfg: Config = Config(), *,
+              overwrite_a: bool = False):
     """CholeskyQR(2) in the 1D layout. Returns (Q, R): Q like A, R n x n
     upper triangular (num_iter=1 returns the sweep's R as chol_inv gives
-    it, as the JAX package does)."""
+    it, as the JAX package does).
+
+    A is left as it was unless overwrite_a is True and cfg.formq_chunks >
+    1: then Q is written over A's storage (Q is A), which saves a copy of
+    A when the caller no longer needs it."""
     a = _operand(grid, a)
-    q, r1 = _sweep_1d(grid, a, cfg)
+    q, r1 = _sweep_1d(grid, a, cfg, overwrite_a)
     if cfg.num_iter == 1:
         return q, r1
-    q, r2 = _sweep_1d(grid, q, cfg)
+    q, r2 = _sweep_1d(grid, q, cfg, overwrite_a=True)  # q is ours
     r = blas.trmm(r2, torch.triu(r1), side="L", uplo="U",
                   platform=grid.platform)
     return q, torch.triu(r)
@@ -298,13 +301,15 @@ def factor_hybrid(grid: Grid, a, cfg: Config = Config()):
 # dispatch and export
 # ---------------------------------------------------------------------------
 
-def factor(grid: Grid, a, cfg: Config = Config()):
+def factor(grid: Grid, a, cfg: Config = Config(), *,
+           overwrite_a: bool = False):
     """The 1D path for n <= cfg.local_thresh, else the 3D path. (The JAX
     package's third branch, the hybrid path, needs a rect grid of more
-    than one device.)"""
+    than one device.) overwrite_a as for factor_1d; the 3D path never
+    writes over A."""
     arr = a.data if isinstance(a, DistMatrix) else a
     if arr.shape[1] <= cfg.local_thresh:
-        return factor_1d(grid, arr, cfg)
+        return factor_1d(grid, arr, cfg, overwrite_a=overwrite_a)
     return factor_3d(grid, arr, cfg)
 
 

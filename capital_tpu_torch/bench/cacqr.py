@@ -15,6 +15,8 @@ best time (null for bf16, which torch.linalg.qr does not take).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from capital_tpu_torch import matrix, tracing, validate
@@ -59,8 +61,10 @@ def _run(args):
                        formq_chunks=args.formq_chunks,
                        gram_kernel=args.gram_kernel,
                        chol=cholinv.Config(base_method=args.base_method))
-    fn = {"3d": cacqr.factor_3d,
-          "hybrid": cacqr.factor_hybrid}.get(args.path, cacqr.factor_1d)
+    # each timed call gets a fresh operand, so the 1D path may write Q
+    # over it (--formq-chunks > 1)
+    fn = {"3d": cacqr.factor_3d, "hybrid": cacqr.factor_hybrid}.get(
+        args.path, functools.partial(cacqr.factor_1d, overwrite_a=True))
     layout = "2d" if args.path == "3d" else "1d"
 
     def regen(seed: int) -> torch.Tensor:

@@ -5,7 +5,6 @@ from __future__ import annotations
 
 def reset_counters() -> None:
     """Zero every kernel launch count and every fallback count."""
-    from capital_tpu_torch.algs import cacqr
     from capital_tpu_torch.ops import blas, cuda_chol, cuda_getrf, cuda_syrk
     from capital_tpu_torch.ops import cuda_trmm, lapack
 
@@ -15,7 +14,7 @@ def reset_counters() -> None:
     cuda_chol.chol_inv_cuda.launches = 0
     blas.trmm.dot_calls = 0
     blas.syrk.dot_calls = 0
-    cacqr._local_gram.dot_calls = 0
+    blas.gram_dot.calls = 0
     lapack.chol_inv.xla_calls = 0
     cuda_getrf.getrf_leaf.launches = 0
     cuda_getrf.getrf_leaf.by_route = dict.fromkeys(
@@ -28,10 +27,9 @@ def counters() -> dict:
     """Kernel launches since the last reset (`getrf_leaf_by_route` splits
     the LU leaf's by route: resident, tall), with the fallbacks that
     bypassed a kernel (`trmm_dot`, `syrk_dot`, `chol_xla`; `gram_dot`,
-    cacqr's plain Gram, which does not go through blas.syrk; for LU
+    cacqr's plain Gram, blas.gram_dot; for LU
     `leaf_plain`, the plain leaf that CAPITAL_LU_LEAF=jax asks for, and
     `lu_library`, torch.linalg.lu_factor panels)."""
-    from capital_tpu_torch.algs import cacqr
     from capital_tpu_torch.ops import blas, cuda_chol, cuda_getrf, cuda_syrk
     from capital_tpu_torch.ops import cuda_trmm, lapack
 
@@ -42,7 +40,7 @@ def counters() -> dict:
         "chol_inv": cuda_chol.chol_inv_cuda.launches,
         "trmm_dot": blas.trmm.dot_calls,
         "syrk_dot": blas.syrk.dot_calls,
-        "gram_dot": cacqr._local_gram.dot_calls,
+        "gram_dot": blas.gram_dot.calls,
         "chol_xla": lapack.chol_inv.xla_calls,
         "getrf_leaf": cuda_getrf.getrf_leaf.launches,
         "getrf_leaf_by_route": dict(cuda_getrf.getrf_leaf.by_route),

@@ -1,5 +1,5 @@
 """Local BLAS-3 semantics (counterpart of capital_tpu/ops/blas.py): gemm,
-trmm, syrk.
+trmm, syrk, and gram_dot, cacqr's plain Gram.
 
 Conventions:
   * triangular operands are dense tensors; `uplo` selects the mask,
@@ -120,3 +120,14 @@ def syrk(a, *, c=None, uplo="U", trans="T", alpha=1.0, beta=0.0,
 
 
 syrk.dot_calls = 0
+
+
+def gram_dot(a):
+    """A^T A accumulated in f32 (f64 for f64) by a plain product: cacqr's
+    Gram off the SYRK kernel (the `gram_dot` fallback of ops.counters();
+    it does not go through syrk's method choice)."""
+    gram_dot.calls += 1
+    return _pdot(a.T, a)
+
+
+gram_dot.calls = 0

@@ -57,10 +57,12 @@
    torch.linalg.qr(A, mode='reduced') on the same operand. The kernel
    phase adds SYRK and TRMM side='R' rows at this path's shapes (the Gram
    of 2^20 x 1024 at 'highest' and of 2^19 x 4096 at 'high'; formQ on
-   2^20 x 1024 and on the 2^16 x 4096 chunk), timed at the full shape and
-   held against the plain version on the first and (TRMM) the last
-   CACQR_CHECK_ROWS rows, deep enough that SYRK's fold fires; and TRMM's
-   pack of a B taller than 2^21 rows, bitwise against its plain version.
+   2^20 x 1024 and on the 2^16 x 4096 chunk), each held against its plain
+   version on the whole operand; and TRMM's pack of a B taller than 2^21
+   rows, bitwise against its plain version. The path's own orthogonality
+   and residual go through SYRK and TRMM, so they are also taken in f64
+   plain products (orthogonality_f64, residual_f64), which run none of
+   the kernels, and held to the same 1e-5.
    Every main path zeroes the launch counters just before it and reads
    them just after: each kernel of the path must have run the number of
    times its recursion gives (every LU leaf on the resident route), and
@@ -118,7 +120,6 @@ LU_TOL, LU_SOLVE_TOL, LEAF_TOL = 5e-4, 1e-3, 1e-6
 # The first is the JAX package's `bench.cacqr` default, the second its
 # 2^19 x 4096 'high' run with Q formed in place (BENCH_LOCAL.md:39).
 CACQR_RUNS = ((1 << 20, 1024, "highest", 1), (1 << 19, 4096, "high", 8))
-CACQR_CHECK_ROWS = 1 << 15  # 64 row chunks of 512: SYRK's fold fires
 TALL_PACK_ROWS = (1 << 21) + 4096  # > 65535 pack blocks of 32 rows
 QR_TOL = 1e-5
 
@@ -304,31 +305,27 @@ def kernel_phase(level: str, failures: list) -> list:
 def cacqr_rows(level: str, gen, failures: list, add) -> None:
     """SYRK (the Gram) and TRMM side='R' (formQ) at the cacqr main path's
     shapes at this level: 2^20 x 1024 at 'highest'; at 'high' the Gram of
-    2^19 x 4096 and formQ on its 2^16 x 4096 chunk. Timed at the full
-    shape; the plain versions (slow at 2^20 rows) are run and timed on the
-    first CACQR_CHECK_ROWS rows, and for TRMM also the last, held against
-    the kernel's output on those rows. G is bitwise symmetric at both
-    depths."""
+    2^19 x 4096 and formQ on its 2^16 x 4096 chunk. Each is held against
+    its plain version on the whole operand (row offsets past 2^31 bytes,
+    the fold firing many times), both timed at that shape; G is bitwise
+    symmetric."""
     from capital_tpu_torch.ops.cuda_syrk import syrk_upper, syrk_upper_plain
     from capital_tpu_torch.ops.cuda_trmm import trmm_upper, trmm_upper_plain
 
     m, n, _, chunks = next(r for r in CACQR_RUNS if r[2] == level)
     passes, peak = (1, PEAK_F32) if level == "highest" else (3, PEAK_BF16)
-    c = CACQR_CHECK_ROWS
     a = torch.rand((m, n), generator=gen, device=gen.device) - 0.5
 
-    def ks(x=a):
-        return syrk_upper(x, matmul_precision=level)
+    def ks():
+        return syrk_upper(a, matmul_precision=level)
 
     ms = events_ms(ks, 3)
-    check_symmetric(ks(), f"syrk_upper[cacqr]@{level}", failures)
-    got = ks(a[:c])
-    check_symmetric(got, f"syrk_upper[cacqr]@{level} ({c} rows)", failures)
-    plain_ms, want = once_ms(lambda: syrk_upper_plain(a[:c], prec=level))
+    got = ks()
+    check_symmetric(got, f"syrk_upper[cacqr]@{level}", failures)
+    plain_ms, want = once_ms(lambda: syrk_upper_plain(a, prec=level))
     lib_ms = events_ms(lambda: torch.matmul(a.T, a), 3)
-    row = add("syrk_upper", "cacqr", [m, n], got, plain_ms, want, ms, lib_ms,
-              passes * m * n * (n + 1), 4 * (m * n + n * n), peak)
-    row["plain_shape"] = [c, n]
+    add("syrk_upper", "cacqr", [m, n], got, plain_ms, want, ms, lib_ms,
+        passes * m * n * (n + 1), 4 * (m * n + n * n), peak)
     del got, want
 
     mq = m // chunks  # one formQ call's rows
@@ -336,21 +333,18 @@ def cacqr_rows(level: str, gen, failures: list, add) -> None:
     u = torch.triu(torch.rand((n, n), generator=gen, device=gen.device))
     u.diagonal().add_(1.0)
 
-    def kt(x=b):
-        return trmm_upper(u, x, side="R", matmul_precision=level)
+    def kt():
+        return trmm_upper(u, b, side="R", matmul_precision=level)
 
     ms = events_ms(kt, 3)
     out = kt()
-    plain_ms, want = once_ms(lambda: trmm_upper_plain(u, b[:c], side="R",
+    plain_ms, want = once_ms(lambda: trmm_upper_plain(u, b, side="R",
                                                       prec=level))
-    want_end = trmm_upper_plain(u, b[-c:], side="R", prec=level)
     lib_ms = events_ms(lambda: torch.matmul(b, u), 3)
-    row = add("trmm_upper", "R:cacqr", [mq, n], (out[:c], out[-c:]),
-              plain_ms, (want, want_end), ms, lib_ms,
-              passes * mq * n * (n + 1), 4 * (n * (n + 1) / 2 + 2 * n * mq),
-              peak)
-    row["plain_shape"] = [c, n]
-    del a, b, out, want, want_end
+    row = add("trmm_upper", "R:cacqr", [mq, n], out, plain_ms, want, ms,
+              lib_ms, passes * mq * n * (n + 1),
+              4 * (n * (n + 1) / 2 + 2 * n * mq), peak)
+    del a, b, out, want
     # B's pack along its rows, o = rows beyond 65535 blocks of 32 (a 2^22-
     # row formQ without chunks): bitwise the plain version
     tall = torch.rand((TALL_PACK_ROWS, 128), generator=gen,
@@ -742,17 +736,20 @@ def cacqr_path(m: int, n: int, level: str, chunks: int,
     grid = Grid.square(c=1, d=1)
     cfg = cacqr.Config(num_iter=2, formq_chunks=chunks)
 
-    def operand():  # factor_1d writes Q over it when chunks > 1
+    def operand():  # Q is written over it when chunks > 1
         return matrix.tall_skinny(grid, m, n, 0).data
+
+    def run(a):
+        return cacqr.factor_1d(grid, a, cfg, overwrite_a=True)
 
     a = operand()
     with default_matmul_precision(level):
         reset_counters()
-        secs, (q, r) = once_ms(lambda: cacqr.factor_1d(grid, a, cfg))
+        secs, (q, r) = once_ms(lambda: run(a))
         got = counters()
         del q, r, a
         a = operand()
-        secs2, (q, r) = once_ms(lambda: cacqr.factor_1d(grid, a, cfg))
+        secs2, (q, r) = once_ms(lambda: run(a))
         del a
     best_ms = min(secs, secs2)
     leaf = n <= 1024
@@ -766,10 +763,12 @@ def cacqr_path(m: int, n: int, level: str, chunks: int,
     orth = float(validate.qr_orthogonality(grid, q))
     a = operand()
     res = float(validate.qr_residual(grid, a, q, r))
+    orth64, res64 = qr_errors_f64(a, q, r)
     del q, r
-    if not (orth < QR_TOL and res < QR_TOL):  # also fails on NaN
-        failures.append(f"cacqr {m}x{n}: orthogonality {orth} / residual "
-                        f"{res} not below {QR_TOL}")
+    for what, x in (("orthogonality", orth), ("residual", res),
+                    ("orthogonality_f64", orth64), ("residual_f64", res64)):
+        if not x < QR_TOL:  # also fails on NaN
+            failures.append(f"cacqr {m}x{n}: {what} {x} not below {QR_TOL}")
     torch.cuda.empty_cache()
     once_ms(lambda: torch.linalg.qr(a[:4096], mode="reduced"))  # warm up
     lib_ms, out = once_ms(lambda: torch.linalg.qr(a, mode="reduced"))
@@ -779,9 +778,29 @@ def cacqr_path(m: int, n: int, level: str, chunks: int,
     rec = {"m": m, "n": n, "precision": level, "formq_chunks": chunks,
            "ms": [secs, secs2], "gflops": flops / best_ms / 1e6,
            "library_ms": lib_ms, "vs_library": lib_ms / best_ms,
-           "orthogonality": orth, "residual": res, "launches": got}
+           "orthogonality": orth, "residual": res,
+           "orthogonality_f64": orth64, "residual_f64": res64,
+           "launches": got}
     print(f"[cacqr] {json.dumps(rec)}", flush=True)
     return rec
+
+
+def qr_errors_f64(a: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
+                  rows: int = 1 << 16) -> tuple[float, float]:
+    """(||Q^T Q - I||_F / sqrt(n), ||Q R - A||_F / ||A||_F) in f64 plain
+    products, row chunk by row chunk: the QR checked by none of the
+    kernels that made it."""
+    n = q.shape[1]
+    g = torch.zeros((n, n), dtype=torch.float64, device=q.device)
+    rt = torch.triu(r).double()
+    d2 = a2 = 0.0
+    for i in range(0, q.shape[0], rows):
+        qc, ac = q[i:i + rows].double(), a[i:i + rows].double()
+        g.addmm_(qc.T, qc)
+        d2 += float(torch.sum((qc @ rt - ac) ** 2))
+        a2 += float(torch.sum(ac ** 2))
+    g.diagonal().sub_(1.0)
+    return float(torch.linalg.norm(g)) / n**0.5, (d2 / a2) ** 0.5
 
 
 def path_launches(row: dict, mains: list, lus: list,

@@ -119,10 +119,9 @@ def _port(fn, m, n, seed, level, route, chol=(), dtype="float32", **kw):
     cfg = interop.cacqr_config_from_dict(
         dataclasses.asdict(_jcfg(route, chol, **kw)))
     a = torch.from_numpy(_operand(m, n, seed)).to(getattr(torch, dtype))
-    x = a.clone()  # formq_chunks > 1 writes Q over the operand
     with _route(route), default_matmul_precision(level):
         reset_counters()
-        q, r = getattr(cacqr, fn)(grid, x, cfg)
+        q, r = getattr(cacqr, fn)(grid, a, cfg)
         used = counters()
     layout = "2d" if fn == "factor_3d" else "1d"
     orth = float(validate.qr_orthogonality(grid, q, layout=layout))
@@ -225,6 +224,23 @@ def test_formq_inplace_matches_jax(chunks, nch, route):
     assert q.data_ptr() == x.data_ptr()
     assert counters()["trmm_dot"] == (nch if route == "dot" else 0)
     assert _rel(q, want) < 1e-5
+
+
+@pytest.mark.parametrize("overwrite_a", [False, True])
+@pytest.mark.parametrize("fn", ["factor_1d", "factor"])
+def test_formq_chunks_overwrite_a(fn, overwrite_a):
+    """With formq_chunks > 1 A keeps its values unless the caller passes
+    overwrite_a=True, and then Q is A; Q and R match Q formed out of
+    place."""
+    grid = Grid.square(device="cpu")
+    a0 = torch.from_numpy(_operand(2048, N, 6))
+    a = a0.clone()
+    q, r = getattr(cacqr, fn)(grid, a, cacqr.Config(formq_chunks=4),
+                              overwrite_a=overwrite_a)
+    q_ref, r_ref = cacqr.factor_1d(grid, a0, cacqr.Config())
+    assert (q.data_ptr() == a.data_ptr()) == overwrite_a
+    assert overwrite_a or torch.equal(a, a0)
+    assert _rel(q, q_ref) < 1e-5 and _rel(r, r_ref) < 1e-5
 
 
 @pytest.mark.parametrize("route", ["tri", "dot"])
