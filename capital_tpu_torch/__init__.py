@@ -3,8 +3,9 @@
 Same module layout and public names as the JAX package (`Grid`,
 `DistMatrix`, `cholinv.Config`, `cholinv.factor`,
 `validate.cholesky_residual`, ...). It covers, on one device, the
-recursive Cholesky + inverse, LU with partial pivoting and CholeskyQR2;
-their four TPU kernels (TRMM, SYRK, the fused Cholesky leaf, the LU
+recursive Cholesky + inverse, LU with partial pivoting, CholeskyQR2, and
+the solvers over them (QDWH polar, Newton-Schulz, TSQR, `linalg`); their
+four TPU kernels (TRMM, SYRK, the fused Cholesky leaf, the LU
 panel leaf) are hand-written CUDA kernels for Hopper (sm_90a) under
 `csrc/`, built with nvcc at first use.
 

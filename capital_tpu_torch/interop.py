@@ -1,9 +1,9 @@
 """Carry state across from the JAX package, as numpy.
 
-cholinv and cacqr have no weights: their state is the operand and the
-configuration. Both cross as plain data, so this module imports nothing
-of the JAX package: a caller hands over `np.asarray(dist_matrix.data)`
-and `dataclasses.asdict(cfg)`.
+The factorizations and solvers have no weights: their state is the
+operand and the configuration. Both cross as plain data, so this module
+imports nothing of the JAX package: a caller hands over
+`np.asarray(dist_matrix.data)` and `dataclasses.asdict(cfg)`.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from capital_tpu_torch.algs import cacqr, cholinv
+from capital_tpu_torch.algs import cacqr, cholinv, newton, polar, tsqr
 from capital_tpu_torch.grid import default_device
 from capital_tpu_torch.matrix import DistMatrix, Structure
 
@@ -57,3 +57,28 @@ def cacqr_config_from_dict(d: dict) -> cacqr.Config:
     if "chol" in kw:
         kw["chol"] = config_from_dict(kw["chol"])
     return cacqr.Config(**kw)
+
+
+def polar_config_from_dict(d: dict) -> polar.Config:
+    """The port's polar.Config from `dataclasses.asdict` of the JAX one;
+    the nested `chol` dict goes through config_from_dict. An unknown
+    field, here or in `chol`, raises."""
+    _check_fields(polar.Config, d)
+    kw = dict(d)
+    if "chol" in kw:
+        kw["chol"] = config_from_dict(kw["chol"])
+    return polar.Config(**kw)
+
+
+def newton_config_from_dict(d: dict) -> newton.Config:
+    """The port's newton.Config from `dataclasses.asdict` of the JAX one;
+    an unknown field raises."""
+    _check_fields(newton.Config, d)
+    return newton.Config(**d)
+
+
+def tsqr_config_from_dict(d: dict) -> tsqr.Config:
+    """The port's tsqr.Config from `dataclasses.asdict` of the JAX one;
+    an unknown field raises."""
+    _check_fields(tsqr.Config, d)
+    return tsqr.Config(**d)

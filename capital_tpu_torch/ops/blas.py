@@ -13,11 +13,12 @@ plain product. 'auto' takes CAPITAL_TRMM_METHOD / CAPITAL_SYRK_METHOD if
 set, else 'tri' on a GPU, but for two bf16 gates: a formQ-like side='R'
 TRMM (B more than 4x taller than U) and a SYRK stay on 'dot' below n =
 BF16_TRI_MIN_N (U's side; A's columns). On the card a bf16 plain product
-is an f32 product of bf16-valued copies, without tensor cores: at cacqr's
+is an f32 product without tensor cores (precision.bf16_dot): at cacqr's
 2^22 x 1024 bf16 factor the kernels took 140-170 ms against 520-541 ms
 on 'dot' at each of the three bf16 gates, cacqr's Gram among them
-(PERF.md, K8). Narrower bf16 operands were not measured there and keep
-'dot', as the JAX package does below its TPU threshold of 2048.
+(PERF.md, K8, before the plain product's f32 copies went chunked).
+Narrower bf16 operands were not measured there and keep 'dot', as the
+JAX package does below its TPU threshold of 2048.
 """
 
 from __future__ import annotations

@@ -20,6 +20,15 @@ tensors (that returns bf16 and drops the f32 accumulation). The operands
 are rounded onto the bf16 grid and multiplied in f32 instead; a product of
 two bf16-grid values is exact in f32, so this is the tensor cores'
 bf16-in / f32-accumulate arithmetic.
+
+A product of two bf16 tensors makes no f32 copy of either whole operand
+(bf16_dot): it is contracted in k-chunks whose f32 copies hold at most
+BF16_CHUNK_ELEMS elements, each chunk's f32 product added into the f32
+result. The card's bf16-in / f32-out product (`torch.mm(...,
+out_dtype=torch.float32)`) is not used: on an H100 its 2^22-deep Gram of
+a bf16 2^22 x 1024 operand lay 6.2e-3 (relative Frobenius) from the SYRK
+kernel's, whose f32 sum takes the tensor cores' partial sums every 128
+rows (PERF.md, F3).
 """
 
 from __future__ import annotations
@@ -118,7 +127,33 @@ def passes(a: torch.Tensor, b: torch.Tensor, level: str):
     return [(a_hi, b_hi), (a_hi, b_lo), (a_lo, b_hi)]
 
 
+BF16_CHUNK_ELEMS = 1 << 24   # f32 elements of one k-chunk's two copies
+
+
+def bf16_chunk(rows: int, cols: int, k: int) -> int:
+    """k-chunk of an (rows, k) @ (k, cols) bf16 product: the chunk's two
+    f32 copies, (rows + cols) * chunk elements, stay within
+    BF16_CHUNK_ELEMS (at least one column of k)."""
+    return max(1, min(k, BF16_CHUNK_ELEMS // max(rows + cols, 1)))
+
+
+def bf16_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32-accumulated a @ b of two 2-D bf16 tensors, without an f32 copy
+    of a whole operand: f32 products of k-chunks (exact, as every product
+    of two bf16 values is) summed into the f32 result."""
+    rows, k = a.shape
+    cols = b.shape[1]
+    step = bf16_chunk(rows, cols, k)
+    out = torch.zeros((rows, cols), dtype=torch.float32, device=a.device)
+    for k0 in range(0, k, step):
+        out.addmm_(a[:, k0:k0 + step].float(), b[k0:k0 + step].float())
+    return out
+
+
 def _product(a, b, level, out_dtype):
+    if (a.dtype == b.dtype == torch.bfloat16 and out_dtype == torch.float32
+            and a.dim() == b.dim() == 2):
+        return bf16_dot(a, b)   # one pass at every level: products exact
     if level == HIGHEST or out_dtype == torch.float64:
         return torch.matmul(a.to(out_dtype), b.to(out_dtype))
     ps = [torch.matmul(x, y) for x, y in passes(a, b, level)]

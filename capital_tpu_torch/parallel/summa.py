@@ -93,3 +93,13 @@ def syrk(grid: Grid, a, *, c=None, alpha=1.0, beta=0.0, impl="gspmd",
     _record_gemm_cost(grid, aw, aw, a.element_size())
     return blas.syrk(a, c=c, alpha=alpha, beta=beta, platform=grid.platform,
                      a_window=a_window)
+
+
+def syrk2(grid: Grid, a, b, *, c=None, alpha=1.0, beta=0.0,
+          impl="shard_map", num_chunks: int = 1, throttle: bool = False,
+          collect_chunks: int = 1):
+    """Two-matrix SYRK: C = alpha * A^T B + beta * C (polar's H = U^T A).
+    On one device one plain product, recorded as the gemm it is."""
+    return gemm(grid, a.T, b, c=c, alpha=alpha, beta=beta, impl=impl,
+                num_chunks=num_chunks, throttle=throttle,
+                collect_chunks=collect_chunks)

@@ -63,9 +63,35 @@
    and residual go through SYRK and TRMM, so they are also taken in f64
    plain products (orthogonality_f64, residual_f64), which run none of
    the kernels, and held to the same 1e-5.
+6. F3: the plain bf16 Gram (blas.gram_dot, cacqr.gram_1d(kernel='dot'))
+   of a bf16 2^22 x 1024 operand: peak memory above the operand below
+   4 GiB each (no f32 copy of it), the Gram within 1e-5 of the SYRK
+   kernel's; each, and the card's bf16-in / f32-out torch.mm (which the
+   port does not use), is also held to an f64 Gram (reported).
+7. QDWH polar main path: polar.polar of matrix.rand 2^18 x 2048 f32 at
+   'highest', default Config (l0 = 1e-5: one QR-variant step, three
+   Halley steps, one polish, H), layout '2d' (the headline: the Gram by
+   SYRK, Z by cholinv, the updates by TRMM side='R' and, on no other
+   path, side='R' transposed) and '1d'; two calls each. Orthogonality
+   and reconstruction in f64 plain products below 1e-5, H bitwise
+   symmetric, the first call's peak memory above A at most 6 iterates, U
+   within 1e-4 of U V^T from an f64 SVD of A; the library call is the
+   f32 torch.linalg.svd with U V^T and V diag(S) V^T (its U V^T against
+   the f64 one is reported). The kernel phase adds TRMM side='R'
+   (transposed and not) and SYRK rows at 2^18 x 2048 'highest', held
+   against their plain versions on the whole operand.
+8. Solver paths: linalg.spd_solve at n = 16384, k = 256, 'high', two
+   refinement sweeps (f64 host residual over 8 columns below 1e-5;
+   library cholesky + cholesky_solve); linalg.lstsq at 2^19 x 1024, k =
+   64, 'highest', one sweep, by 'cqr2' and 'tsqr' (normal-equations
+   residual in f64 over 8 columns at most 10 x torch.linalg.lstsq's; the
+   TSQR Q's orthogonality in f64 below 1e-5); and a [linalg] phase that
+   runs solve ('normal', 'lu', 'polar'), inv, slogdet_spd and
+   newton.invert at n = 4096 and expm at n = 2048, each held to a plain
+   f64 host computation (numpy, scipy) within the bound it prints.
    Every main path zeroes the launch counters just before it and reads
    them just after: each kernel of the path must have run the number of
-   times its recursion gives (every LU leaf on the resident route), and
+   times its call tree gives (every LU leaf on the resident route), and
    no fallback may have run. GFLOP/s and
    the time ratio against the library call at the same shape are printed.
 
@@ -73,15 +99,16 @@ Exits non-zero on any failure, or when no CUDA device is present. The
 last three lines are the card's name and power limit, a JSON object with
 one row per kernel and shape and {"ok": true, "device": {...}}; the full
 record is written to chiprun_out/chip_smoke.json. A row's `launches` is
-the count of its kernel on the main path that runs it at the row's
-precision and input type and on the row's kind of operand; a row that no
-main path runs so (TRMM R,trans, the ragged, fold and bf16 TRMM and SYRK
-rows, the leaf at a block size that neither cholinv's base case nor
+the count of its kernel (and TRMM case) on the main path that runs it at
+the row's precision and input type and on the row's kind of operand
+(the polar rows: the 2d headline call's); a row that no main path runs
+so (TRMM R,trans at 16384 and 512, the ragged, fold and bf16 TRMM and
+SYRK rows, the leaf at a block size that neither cholinv's base case nor
 cacqr's Gram takes, the LU leaf on the tall route) has `on_path` false
 and 0 launches. A TRMM row's case is its side and transpose, with
-":ragged", ":512", ":bf16" or ":cacqr" after it for the shapes beside
-16384; SYRK's cacqr rows have case "cacqr"; an LU leaf row's case is its
-strip's label.
+":ragged", ":512", ":bf16", ":cacqr" or ":polar" after it for the shapes
+beside 16384; SYRK's cacqr and polar rows have case "cacqr" and "polar";
+an LU leaf row's case is its strip's label.
 """
 
 from __future__ import annotations
@@ -122,6 +149,23 @@ LU_TOL, LU_SOLVE_TOL, LEAF_TOL = 5e-4, 1e-3, 1e-6
 CACQR_RUNS = ((1 << 20, 1024, "highest", 1), (1 << 19, 4096, "high", 8))
 TALL_PACK_ROWS = (1 << 21) + 4096  # > 65535 pack blocks of 32 rows
 QR_TOL = 1e-5
+# F3: the plain bf16 Gram at cacqr's bf16 gate shape, without f32 copies
+F3_SHAPE = (1 << 22, 1024)
+F3_PEAK_BYTES = 4 << 30          # above the 8 GiB operand
+# QDWH polar: the JAX package's QDWH-SVD shape (README.md:113), f32
+# 'highest', default Config; the headline layout first
+POLAR_SHAPE = (1 << 18, 2048)
+POLAR_LAYOUTS = ("2d", "1d")
+POLAR_TOL, POLAR_SVD_TOL, POLAR_ITERATES = 1e-5, 1e-4, 6
+# spd_solve: (n, k, precision, refine), BENCH_LOCAL.md:295; lstsq: (m, n,
+# k, precision, refine) and its methods, BENCH_LOCAL.md:301-302
+SPD_RUN = (16384, 256, "high", 2)
+LSTSQ_RUN = (1 << 19, 1024, 64, "highest", 1)
+LSTSQ_METHODS = ("cqr2", "tsqr")
+SOLVE_TOL, LSTSQ_VS_LIBRARY = 1e-5, 10.0
+# [linalg]: every other new entry point once, f32 'highest'
+LINALG_N, LINALG_K, EXPM_N = 4096, 16, 2048
+LINALG_TOL, EXPM_TOL = 1e-5, 5e-5
 
 
 def smi() -> str:
@@ -179,6 +223,30 @@ def tree(n: int, bc: int, split: int = 1):
     l1, i1 = tree(n1, bc, split)
     l2, i2 = tree(n - n1, bc, split)
     return l1 + l2, i1 + i2 + 1
+
+
+def zero_counts() -> dict:
+    """ops.counters()'s keys, every count 0: the start of a path's
+    expected launch counts."""
+    from capital_tpu_torch.ops import counters
+
+    return {k: (dict.fromkeys(v, 0) if isinstance(v, dict) else 0)
+            for k, v in counters().items()}
+
+
+def add_trmm(want: dict, case: str, k: int = 1) -> None:
+    want["trmm_upper"] += k
+    want["trmm_upper_by_case"][case] += k
+
+
+def add_cholinv(want: dict, n: int, bc: int, times: int = 1) -> None:
+    """The launches of `times` cholinv.factor calls at n, base case bc
+    (a multiple of 128 up to 1024, so every leaf is the kernel's)."""
+    leaves, inner = tree(n, bc)
+    for case in ("L", "L,trans", "R"):
+        add_trmm(want, case, inner * times)
+    want["syrk_upper"] += inner * times
+    want["chol_inv"] += leaves * times
 
 
 def kernel_phase(level: str, failures: list) -> list:
@@ -294,6 +362,8 @@ def kernel_phase(level: str, failures: list) -> list:
         del got, want
     del work, bv, tall
     cacqr_rows(level, gen, failures, add)
+    if level == "highest":
+        polar_rows(gen, failures, add)
 
     if level == "high":
         bf16_syrk(gen, failures, add)
@@ -352,6 +422,50 @@ def cacqr_rows(level: str, gen, failures: list, add) -> None:
     row["pack_tall_bitwise"] = check_pack(
         tall, level, "pack B (tall)", failures, along_rows=False)
     del tall
+    torch.cuda.empty_cache()
+
+
+def polar_rows(gen, failures: list, add) -> None:
+    """TRMM side='R' (transposed and not) and SYRK at the polar headline's
+    shape, 2^18 x 2048 f32 'highest', each held against its plain version
+    on the whole operand; G is bitwise symmetric."""
+    from capital_tpu_torch.ops.cuda_syrk import syrk_upper, syrk_upper_plain
+    from capital_tpu_torch.ops.cuda_trmm import trmm_upper, trmm_upper_plain
+
+    m, n = POLAR_SHAPE
+    dev = gen.device
+    a = torch.rand((m, n), generator=gen, device=dev) - 0.5
+    u = torch.triu(torch.rand((n, n), generator=gen, device=dev))
+    u.diagonal().add_(1.0)
+    ops, nbytes = m * n * (n + 1), 4 * (n * (n + 1) / 2 + 2 * n * m)
+    for trans in (True, False):
+        case = "R,trans:polar" if trans else "R:polar"
+
+        def kt(trans=trans):
+            return trmm_upper(u, a, side="R", trans_a=trans,
+                              matmul_precision="highest")
+
+        ms = events_ms(kt, 3)
+        out = kt()
+        plain_ms, want = once_ms(lambda: trmm_upper_plain(
+            u, a, side="R", trans_a=trans, prec="highest"))
+        t = torch.triu(u).T if trans else torch.triu(u)
+        lib_ms = events_ms(lambda: torch.matmul(a, t), 3)
+        add("trmm_upper", case, [m, n], out, plain_ms, want, ms, lib_ms,
+            ops, nbytes, PEAK_F32)
+        del out, want
+
+    def ks():
+        return syrk_upper(a, matmul_precision="highest")
+
+    ms = events_ms(ks, 3)
+    got = ks()
+    check_symmetric(got, "syrk_upper[polar]@highest", failures)
+    plain_ms, want = once_ms(lambda: syrk_upper_plain(a, prec="highest"))
+    lib_ms = events_ms(lambda: torch.matmul(a.T, a), 3)
+    add("syrk_upper", "polar", [m, n], got, plain_ms, want, ms, lib_ms,
+        ops, 4 * (m * n + n * n), PEAK_F32)
+    del a, u, got, want
     torch.cuda.empty_cache()
 
 
@@ -675,8 +789,7 @@ def lu_path(n: int, nb: int, lookahead: bool, k_rhs: int,
         nbp = cfg.panel(grid, n)
         leaf_launches = (n // nbp) * lu.leaves(nbp, lu.leaf_width(True))
     best_ms = min(secs, secs2)
-    want = {k: (dict.fromkeys(v, 0) if isinstance(v, dict) else 0)
-            for k, v in got.items()}
+    want = zero_counts()
     want["getrf_leaf"] = leaf_launches
     want["getrf_leaf_by_route"]["resident"] = leaf_launches
     if got != want:
@@ -753,8 +866,7 @@ def cacqr_path(m: int, n: int, level: str, chunks: int,
         del a
     best_ms = min(secs, secs2)
     leaf = n <= 1024
-    want = {k: (dict.fromkeys(v, 0) if isinstance(v, dict) else 0)
-            for k, v in got.items()}
+    want = zero_counts()
     want.update(syrk_upper=2, trmm_upper=2 * chunks + 1,
                 chol_inv=2 if leaf else 0, chol_xla=0 if leaf else 2)
     want["trmm_upper_by_case"].update(R=2 * chunks, L=1)
@@ -790,9 +902,16 @@ def qr_errors_f64(a: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
     """(||Q^T Q - I||_F / sqrt(n), ||Q R - A||_F / ||A||_F) in f64 plain
     products, row chunk by row chunk: the QR checked by none of the
     kernels that made it."""
+    return factor_errors_f64(a, q, torch.triu(r), rows)
+
+
+def factor_errors_f64(a: torch.Tensor, q: torch.Tensor, f: torch.Tensor,
+                      rows: int = 1 << 16) -> tuple[float, float]:
+    """(||Q^T Q - I||_F / sqrt(n), ||Q F - A||_F / ||A||_F) for a dense
+    right factor F (R of a QR, H of a polar), as qr_errors_f64."""
     n = q.shape[1]
     g = torch.zeros((n, n), dtype=torch.float64, device=q.device)
-    rt = torch.triu(r).double()
+    rt = f.double()
     d2 = a2 = 0.0
     for i in range(0, q.shape[0], rows):
         qc, ac = q[i:i + rows].double(), a[i:i + rows].double()
@@ -803,14 +922,427 @@ def qr_errors_f64(a: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
     return float(torch.linalg.norm(g)) / n**0.5, (d2 / a2) ** 0.5
 
 
-def path_launches(row: dict, mains: list, lus: list,
-                  qrs: list) -> tuple[bool, int]:
+def f3_phase(failures: list) -> dict:
+    """F3: the plain bf16 Gram of a bf16 2^22 x 1024 operand through
+    blas.gram_dot and cacqr.gram_1d(kernel='dot'), each with its peak
+    memory above the operand (bound F3_PEAK_BYTES), held to the SYRK
+    kernel's Gram within TOL. Both, and the card's bf16-in / f32-out
+    torch.mm, are also held to an f64 Gram (reported, not bounded)."""
+    from capital_tpu_torch import Grid
+    from capital_tpu_torch.algs import cacqr
+    from capital_tpu_torch.ops import blas, counters, reset_counters
+    from capital_tpu_torch.ops.cuda_syrk import syrk_upper
+
+    grid = Grid.square(c=1, d=1)
+    dev = grid.device
+    m, n = F3_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(3)
+    a = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    step = min(m, 1 << 18)
+    for i in range(0, m, step):
+        a[i:i + step] = (torch.rand((step, n), generator=gen, device=dev)
+                         - 0.5).bfloat16()
+    rec = {"shape": [m, n], "dtype": "bfloat16",
+           "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF")}
+    reset_counters()
+    for what, fn in (("gram_dot", lambda: blas.gram_dot(a)),
+                     ("gram_1d", lambda: cacqr.gram_1d(grid, a,
+                                                       kernel="dot"))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms, g = once_ms(fn)
+        peak = torch.cuda.max_memory_allocated() - base
+        rec[what] = {"ms": ms, "peak_bytes_above_operand": peak}
+        if not peak < F3_PEAK_BYTES:
+            failures.append(f"F3 {what}: peak {peak} bytes above the "
+                            f"operand, not below {F3_PEAK_BYTES}")
+        if what == "gram_dot":
+            g_dot = g
+        del g
+    rec["launches"] = counters()
+    if rec["launches"]["gram_dot"] != 2:
+        failures.append(f"F3: gram_dot ran {rec['launches']['gram_dot']} "
+                        "times, not 2")
+    rec["syrk_ms"], g_syrk = once_ms(lambda: syrk_upper(a))
+    g64 = torch.zeros((n, n), dtype=torch.float64, device=dev)
+    for i in range(0, m, 1 << 16):
+        c = a[i:i + (1 << 16)].double()
+        g64.addmm_(c.T, c)
+    del c
+    rel = compare(g_dot, g_syrk)[0]
+    rec.update(rel_to_syrk=rel, gram_dot_rel_to_f64=compare(g_dot, g64)[0],
+               syrk_rel_to_f64=compare(g_syrk, g64)[0])
+    if a.is_cuda and hasattr(torch.ops.aten.mm, "dtype"):  # not in the port
+        ms, g_mm = once_ms(lambda: torch.mm(a.T, a,
+                                            out_dtype=torch.float32))
+        rec.update(mm_out_dtype_ms=ms,
+                   mm_out_dtype_rel_to_f64=compare(g_mm, g64)[0],
+                   mm_out_dtype_rel_to_syrk=compare(g_mm, g_syrk)[0])
+        del g_mm
+    if not rel <= TOL:
+        failures.append(f"F3: gram_dot differs from the SYRK kernel's Gram "
+                        f"by {rel:.3e} > {TOL}")
+    del a, g_dot, g_syrk, g64
+    torch.cuda.empty_cache()
+    rec["card"] = smi()
+    print(f"[f3] {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def polar_want(n: int, layout: str, cfg, bc: int) -> dict:
+    """Launches of one polar call at n columns, from its schedule: a
+    QR-variant step runs SYRK 3 times, TRMM side='R' 3 times and 'R,trans'
+    once, and factors 2 Grams; a Halley step 1, 1, 1 and 1; each polish
+    one SYRK. '2d' factors by cholinv, '1d' by lapack.chol_inv (the leaf
+    kernel up to n = 1024, torch.linalg above)."""
+    from capital_tpu_torch.algs import polar
+
+    sched = polar.qdwh_weights(cfg.resolve_l0(torch.float32),
+                               torch.float32, cfg.max_iter)
+    nq = sum(c > cfg.qr_switch for _, _, c in sched)
+    nh = len(sched) - nq
+    want = zero_counts()
+    add_trmm(want, "R", 3 * nq + nh)
+    add_trmm(want, "R,trans", nq + nh)
+    want["syrk_upper"] += 3 * nq + nh + cfg.ns_polish
+    factors = 2 * nq + nh
+    if layout == "2d":
+        add_cholinv(want, n, bc, factors)
+    elif n % 128 == 0 and n <= 1024:
+        want["chol_inv"] += factors
+    else:
+        want["chol_xla"] += factors
+    return want
+
+
+def polar_paths(failures: list) -> list:
+    """polar(A) on matrix.rand 2^18 x 2048 f32 at 'highest', default
+    Config, in each of POLAR_LAYOUTS, two calls each; the first call's
+    peak memory above A (at most POLAR_ITERATES iterates). Orthogonality
+    and reconstruction in f64 plain products below POLAR_TOL, H bitwise
+    symmetric, U within POLAR_SVD_TOL of U V^T from an f64 SVD of A. The
+    library call, timed, is the f32 torch.linalg.svd with U V^T and
+    V diag(S) V^T; its U V^T is held to the f64 one too (reported)."""
+    from capital_tpu_torch import Grid, matrix
+    from capital_tpu_torch.algs import polar
+    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops.precision import default_matmul_precision
+
+    grid = Grid.square(c=1, d=1)
+    m, n = POLAR_SHAPE
+    cfg = polar.Config()
+    a = matrix.rand(grid, m, n, 0).data
+    sched = polar.qdwh_weights(cfg.resolve_l0(a.dtype), a.dtype)
+
+    def library():
+        uu, ss, vh = torch.linalg.svd(a, full_matrices=False)
+        return uu @ vh, (vh.T * ss) @ vh
+
+    once_ms(lambda: torch.linalg.svd(a[:4096], full_matrices=False))
+    lib_ms, (uv, hl) = once_ms(library)
+    del hl
+    uu, _, vh = torch.linalg.svd(a.double(), full_matrices=False)
+    uv64 = uu @ vh
+    del uu, vh
+    lib_dev = compare(uv, uv64)[0]
+    del uv
+    torch.cuda.empty_cache()
+    recs = []
+    for layout in POLAR_LAYOUTS:
+        with default_matmul_precision("highest"):
+            reset_counters()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            secs, (u, h) = once_ms(lambda: polar.polar(grid, a, cfg,
+                                                       layout=layout))
+            peak = torch.cuda.max_memory_allocated() - base
+            got = counters()
+            del u, h
+            secs2, (u, h) = once_ms(lambda: polar.polar(grid, a, cfg,
+                                                        layout=layout))
+        best_ms = min(secs, secs2)
+        want = polar_want(n, layout, cfg, cfg.chol.base_dim(grid, n))
+        if got != want:
+            failures.append(f"polar {layout}: launch counts {got} != "
+                            f"{want}")
+        iterate = m * n * a.element_size()
+        if not peak <= POLAR_ITERATES * iterate:
+            failures.append(f"polar {layout}: peak {peak} bytes above A, "
+                            f"more than {POLAR_ITERATES} iterates")
+        symmetric = torch.equal(h, h.T)
+        if not symmetric:
+            failures.append(f"polar {layout}: H is not bitwise symmetric")
+        orth, recon = factor_errors_f64(a, u, h)
+        svd_rel = compare(u, uv64)[0]
+        del u, h
+        torch.cuda.empty_cache()
+        for what, x, tol in (("orthogonality_f64", orth, POLAR_TOL),
+                             ("reconstruction_f64", recon, POLAR_TOL),
+                             ("u_vs_f64_svd", svd_rel, POLAR_SVD_TOL)):
+            if not x < tol:  # also fails on NaN
+                failures.append(f"polar {layout}: {what} {x} not below "
+                                f"{tol}")
+        rec = {"m": m, "n": n, "layout": layout, "precision": "highest",
+               "schedule_c": [w[2] for w in sched], "ms": [secs, secs2],
+               "library_ms": lib_ms, "vs_library": lib_ms / best_ms,
+               "orthogonality_f64": orth, "reconstruction_f64": recon,
+               "u_vs_f64_svd": svd_rel,
+               "library_u_vs_f64_svd": lib_dev,
+               "h_bitwise_symmetric": symmetric,
+               "peak_bytes_above_a": peak, "iterate_bytes": iterate,
+               "launches": got, "card": smi()}
+        print(f"[polar] {json.dumps(rec)}", flush=True)
+        recs.append(rec)
+    del a, uv64
+    torch.cuda.empty_cache()
+    return recs
+
+
+def spd_solve_path(failures: list) -> dict:
+    """linalg.spd_solve at SPD_RUN (cholinv at 'high', two refinement
+    sweeps), two calls; the f64 host residual over 8 columns below
+    SOLVE_TOL. Library: torch.linalg.cholesky + cholesky_solve."""
+    from capital_tpu_torch import Grid, linalg
+    from capital_tpu_torch.algs import cholinv
+    from capital_tpu_torch.bench import solve as bsolve
+    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops.precision import default_matmul_precision
+
+    n, k, level, refine = SPD_RUN
+    grid = Grid.square(c=1, d=1)
+    a, b = bsolve.operands(grid, "spd", 0, n, k, torch.float32)
+    cfg = cholinv.Config(summa_impl="gspmd")
+    with default_matmul_precision(level):
+        reset_counters()
+        secs, x = once_ms(lambda: linalg.spd_solve(grid, a, b, cfg,
+                                                   refine=refine))
+        got = counters()
+        secs2, x = once_ms(lambda: linalg.spd_solve(grid, a, b, cfg,
+                                                    refine=refine))
+    want = zero_counts()
+    add_cholinv(want, n, cfg.base_dim(grid, n))
+    add_trmm(want, "L,trans", 1 + refine)
+    add_trmm(want, "L", 1 + refine)
+    if got != want:
+        failures.append(f"spd_solve n={n}: launch counts {got} != {want}")
+    kb = bsolve.RESIDUAL_COLS
+    a64, b64 = bsolve.host_f64(a), bsolve.host_f64(b[:, :kb])
+    res = bsolve.residual_f64("spd", a64, b64, x)
+    lib = bsolve.library_call("spd", a, b)
+    once_ms(lib)  # warm up
+    lib_ms, x_lib = once_ms(lib)
+    lib_res = bsolve.residual_f64("spd", a64, b64, x_lib)
+    del a, b, x, x_lib, a64
+    torch.cuda.empty_cache()
+    if not res < SOLVE_TOL:
+        failures.append(f"spd_solve n={n}: residual {res} not below "
+                        f"{SOLVE_TOL}")
+    best_ms = min(secs, secs2)
+    rec = {"n": n, "k": k, "precision": level, "refine": refine,
+           "ms": [secs, secs2],
+           "gflops": (2 * n**3 / 3 + (2 + 4 * refine) * n * n * k)
+           / best_ms / 1e6,
+           "solve_residual_f64": res, "library_ms": lib_ms,
+           "vs_library": lib_ms / best_ms,
+           "library_solve_residual_f64": lib_res, "launches": got,
+           "card": smi()}
+    print(f"[solve] {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def lstsq_paths(failures: list) -> list:
+    """linalg.lstsq at LSTSQ_RUN by each of LSTSQ_METHODS, two calls each;
+    the normal-equations residual ||A^T (A x - b)|| / ||b|| in f64 on the
+    host over 8 columns, at most LSTSQ_VS_LIBRARY times torch.linalg.lstsq's
+    on the same operand. For tsqr also the orthogonality of tsqr.factor's
+    Q in f64."""
+    from capital_tpu_torch import Grid, linalg
+    from capital_tpu_torch.algs import cacqr, tsqr
+    from capital_tpu_torch.bench import solve as bsolve
+    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops.precision import default_matmul_precision
+
+    m, n, k, level, refine = LSTSQ_RUN
+    grid = Grid.square(c=1, d=1)
+    a, b = bsolve.operands(grid, "lstsq", m, n, k, torch.float32)
+    kb = bsolve.RESIDUAL_COLS
+    a64, b64 = bsolve.host_f64(a), bsolve.host_f64(b[:, :kb])
+    lib = bsolve.library_call("lstsq", a, b)
+    once_ms(lambda: torch.linalg.lstsq(a[:8192], b[:8192]))  # warm up
+    lib_ms, x_lib = once_ms(lib)
+    lib_res = bsolve.residual_f64("lstsq", a64, b64, x_lib)
+    del x_lib
+    cfg = cacqr.Config(num_iter=2)
+    recs = []
+    for method in LSTSQ_METHODS:
+        with default_matmul_precision(level):
+            reset_counters()
+            secs, x = once_ms(lambda: linalg.lstsq(
+                grid, a, b, cfg, refine=refine, method=method))
+            got = counters()
+            secs2, x = once_ms(lambda: linalg.lstsq(
+                grid, a, b, cfg, refine=refine, method=method))
+        want = zero_counts()
+        if method == "cqr2":  # the CholeskyQR2 factor; tsqr runs none
+            want.update(syrk_upper=2, trmm_upper=3, chol_inv=2)
+            want["trmm_upper_by_case"].update(R=2, L=1)
+        if got != want:
+            failures.append(f"lstsq {method}: launch counts {got} != "
+                            f"{want}")
+        res = bsolve.residual_f64("lstsq", a64, b64, x)
+        del x
+        best_ms = min(secs, secs2)
+        rec = {"m": m, "n": n, "k": k, "precision": level,
+               "refine": refine, "method": method, "ms": [secs, secs2],
+               "gflops": (4 * m * n * n + (2 + 4 * refine) * m * n * k)
+               / best_ms / 1e6,
+               "normal_residual_f64": res,
+               "library_normal_residual_f64": lib_res,
+               "library_ms": lib_ms, "vs_library": lib_ms / best_ms,
+               "launches": got}
+        if method == "tsqr":
+            with default_matmul_precision(level):
+                q, r = tsqr.factor(grid, a)
+            rec["q_orthogonality_f64"], rec["qr_residual_f64"] = \
+                qr_errors_f64(a, q, r)
+            rec["r_diag_nonnegative"] = bool(
+                (torch.diagonal(r) >= 0).all())
+            del q, r
+            for what in ("q_orthogonality_f64", "qr_residual_f64"):
+                if not rec[what] < QR_TOL:
+                    failures.append(f"tsqr: {what} {rec[what]} not below "
+                                    f"{QR_TOL}")
+        if not res <= LSTSQ_VS_LIBRARY * lib_res:
+            failures.append(f"lstsq {method}: normal residual {res} above "
+                            f"{LSTSQ_VS_LIBRARY} x the library's {lib_res}")
+        rec["card"] = smi()
+        print(f"[lstsq] {json.dumps(rec)}", flush=True)
+        recs.append(rec)
+    del a, b, a64
+    torch.cuda.empty_cache()
+    return recs
+
+
+def linalg_phase(failures: list) -> dict:
+    """Every other new entry point once, f32 'highest', n = LINALG_N:
+    solve by 'normal', 'lu' and 'polar' (A = rand + sqrt(n) I, cond ~4;
+    LINALG_K right-hand sides), inv, slogdet_spd and newton.invert(spd)
+    of matrix.symmetric, expm at EXPM_N (against torch.linalg.matrix_exp
+    too). Each result is held to a plain f64 host computation (numpy,
+    scipy) within the bound its entry states, and each call's launch
+    counts to its call tree."""
+    import numpy as np
+    import scipy.linalg
+
+    from capital_tpu_torch import Grid, linalg, matrix
+    from capital_tpu_torch.algs import cholinv, lu, newton, polar
+    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops.precision import default_matmul_precision
+
+    grid = Grid.square(c=1, d=1)
+    dev = grid.device
+    n, k = LINALG_N, LINALG_K
+    cfg = cholinv.Config(summa_impl="gspmd")
+    bc = cfg.base_dim(grid, n)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    a = torch.rand((n, n), generator=gen, device=dev) - 0.5
+    a.diagonal().add_(n**0.5)
+    b = torch.rand((n, k), generator=gen, device=dev) - 0.5
+    s = matrix.symmetric(grid, n, 0, align=128).data
+    a64, b64, s64 = (t.cpu().double().numpy() for t in (a, b, s))
+    x64 = np.linalg.solve(a64, b64)
+    sinv64 = np.linalg.inv(s64)
+
+    def rel64(got, want) -> float:
+        got = got.cpu().double().numpy()
+        return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+    def solve_want(method: str) -> dict:
+        want = zero_counts()
+        if method == "lu":
+            nbp = lu.Config().panel(grid, n)
+            leaves = (n // nbp) * lu.leaves(nbp, lu.leaf_width(True))
+            want["getrf_leaf"] = leaves
+            want["getrf_leaf_by_route"]["resident"] = leaves
+            return want
+        if method == "polar":
+            want = polar_want(n, "2d", polar.Config(chol=cfg), bc)
+        add_cholinv(want, n, bc)   # the Gram's, or H's by spd_solve
+        add_trmm(want, "L,trans", 3)   # two refinement sweeps
+        add_trmm(want, "L", 3)
+        return want
+
+    def newton_call():
+        x, iters, res = newton.invert(grid, s, newton.Config(spd=True))
+        entries["newton"]["iters"] = iters
+        entries["newton"]["ns_residual"] = float(res)
+        return x
+
+    expm_a = ((torch.rand((EXPM_N, EXPM_N), generator=gen, device=dev)
+               - 0.5) * (4.0 / EXPM_N**0.5))
+    expm_want = zero_counts()
+    add_cholinv(expm_want, EXPM_N, cfg.base_dim(grid, EXPM_N))
+    add_trmm(expm_want, "L,trans", 3)
+    add_trmm(expm_want, "L", 3)
+    chol_want = zero_counts()
+    add_cholinv(chol_want, n, bc)
+    calls = {f"solve_{m_}": (lambda m_=m_: linalg.solve(grid, a, b,
+                                                        method=m_),
+                             solve_want(m_), x64, LINALG_TOL)
+             for m_ in ("normal", "lu", "polar")}
+    calls.update(
+        inv=(lambda: linalg.inv(grid, s), chol_want, sinv64, LINALG_TOL),
+        newton=(newton_call, zero_counts(), sinv64, LINALG_TOL),
+        slogdet_spd=(lambda: linalg.slogdet_spd(grid, s)[1], chol_want,
+                     np.linalg.slogdet(s64)[1], LINALG_TOL),
+        expm=(lambda: linalg.expm(grid, expm_a), expm_want,
+              scipy.linalg.expm(expm_a.cpu().double().numpy()), EXPM_TOL))
+    entries = {name: {} for name in calls}
+    for name, (fn, want, ref, tol) in calls.items():
+        with default_matmul_precision("highest"):
+            reset_counters()
+            ms, out = once_ms(fn)
+            got = counters()
+        err = rel64(out, ref)
+        entries[name].update(ms=ms, rel_err_f64=err, bound=tol,
+                             launches=got)
+        if name in ("inv", "newton"):  # the error's share on the diagonal
+            d = np.diagonal(out.cpu().double().numpy() - ref)
+            entries[name]["diag_rel_err_f64"] = float(
+                np.linalg.norm(d) / np.linalg.norm(ref))
+        if name.startswith("solve"):
+            r = a64 @ out.cpu().double().numpy() - b64
+            entries[name]["solve_residual_f64"] = float(
+                np.linalg.norm(r) / np.linalg.norm(b64))
+        if got != want:
+            failures.append(f"linalg {name}: launch counts {got} != {want}")
+        if not err < tol:
+            failures.append(f"linalg {name}: error {err} to the f64 host "
+                            f"result not below {tol}")
+        del out
+    lib_ms, lib = once_ms(lambda: torch.linalg.matrix_exp(expm_a))
+    entries["expm"].update(library_ms=lib_ms,
+                           library_rel_err_f64=rel64(lib, calls["expm"][2]),
+                           vs_library=lib_ms / entries["expm"]["ms"])
+    del a, b, s, lib, expm_a
+    torch.cuda.empty_cache()
+    rec = {"n": n, "k": k, "expm_n": EXPM_N, "precision": "highest",
+           "entries": entries, "card": smi()}
+    print(f"[linalg] {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def path_launches(row: dict, mains: list, lus: list, qrs: list,
+                  polars: list) -> tuple[bool, int]:
     """(on_path, launches) of a kernel row: whether a main path runs its
     kernel at its precision, input type and kind of operand (the
     recursion's 128-aligned windows at most 32 x 512 rows deep; cacqr's
-    Gram and formQ; the leaf at cholinv's base case or cacqr's n; the LU
-    leaf's strips), and that run's launches, else 0. TRMM's R,trans case
-    is on no ported path yet (QDWH uses it)."""
+    Gram and formQ; polar's Gram and its side='R' products on the 2^18-row
+    iterate; the leaf at cholinv's base case or cacqr's n; the LU leaf's
+    strips), and that run's launches of the kernel (and TRMM case), else
+    0. TRMM's R,trans case runs on the polar path only."""
     kernel, case = row["kernel"], row["case"]
     if kernel == "getrf_leaf":  # no leaf of the LU paths is that tall
         if row["leaf_route"] == "tall":
@@ -825,6 +1357,10 @@ def path_launches(row: dict, mains: list, lus: list,
         got = next(q["launches"] for q in qrs
                    if q["precision"] == row["precision"])
         return True, (got["trmm_upper_by_case"]["R"]
+                      if kernel == "trmm_upper" else got[kernel])
+    if case in ("polar", "R:polar", "R,trans:polar"):
+        got = polars[0]["launches"]  # the 2d headline, 'highest'
+        return True, (got["trmm_upper_by_case"][case.split(":")[0]]
                       if kernel == "trmm_upper" else got[kernel])
     got = next((mp["launches"] for mp in mains
                 if mp["precision"] == row["precision"]), None)
@@ -859,15 +1395,22 @@ def main() -> int:
         rows += kernel_phase(level, failures)
     torch.cuda.empty_cache()
     rows += leaf_phase(failures)
+    f3 = f3_phase(failures)
     mains = [main_path(n, level, failures) for n, level in MAIN_RUNS]
     lus = [lu_path(*run, failures) for run in LU_RUNS]
     qrs = [cacqr_path(*run, failures) for run in CACQR_RUNS]
+    polars = polar_paths(failures)
+    solves = [spd_solve_path(failures)]
+    lstsqs = lstsq_paths(failures)
+    linalgs = [linalg_phase(failures)]
     for row in rows:
-        row["on_path"], row["launches"] = path_launches(row, mains, lus, qrs)
+        row["on_path"], row["launches"] = path_launches(row, mains, lus, qrs,
+                                                        polars)
         if row["on_path"] and not row["launches"]:
             failures.append(f"{row['name']} never launched on the main path")
     result = {"card": card, "kernels": rows, "main": mains, "lu": lus,
-              "cacqr": qrs, "failures": failures}
+              "cacqr": qrs, "f3": f3, "polar": polars, "solve": solves,
+              "lstsq": lstsqs, "linalg": linalgs, "failures": failures}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)

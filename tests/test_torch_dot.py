@@ -137,3 +137,39 @@ def test_dot_general_contracts_the_named_axes():
     got = precision.dot_general(torch.from_numpy(a), torch.from_numpy(b),
                                 (((0,), (1,)), ((), ())))
     assert _rel(got.numpy(), want) < 1e-6
+
+
+@pytest.mark.parametrize("k", [300, 20000])
+def test_bf16_dot_holds_no_f32_copy_of_a_whole_operand(monkeypatch, k):
+    """F3: a bf16 x bf16 product converts k-chunks to f32, each chunk's
+    two copies within BF16_CHUNK_ELEMS elements however long k is, and
+    equals the former product of whole f32 copies to relative Frobenius
+    1e-6 (both sum exact bf16 products in f32, in another order)."""
+    monkeypatch.setattr(precision, "BF16_CHUNK_ELEMS", 8192)
+    rng = np.random.default_rng(6)
+    a = torch.from_numpy(rng.standard_normal((96, k)).astype(
+        np.float32)).bfloat16()
+    b = torch.from_numpy(rng.standard_normal((k, 32)).astype(
+        np.float32)).bfloat16()
+    copies = []
+    real_float = torch.Tensor.float
+
+    def spy(self, *args, **kwargs):
+        if self.dtype == torch.bfloat16:
+            copies.append(self.numel())
+        return real_float(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch.Tensor, "float", spy)
+    got = precision.dot(a, b)
+    gram = precision.dot(b.T, b, precision="highest")  # a Gram, k deep
+    monkeypatch.setattr(torch.Tensor, "float", real_float)
+    for rows, cols in ((96, 32), (32, 32)):
+        assert precision.bf16_chunk(rows, cols, k) * (rows + cols) <= 8192
+    assert copies
+    pairs = [copies[i] + copies[i + 1] for i in range(0, len(copies), 2)]
+    assert max(pairs) <= 8192, max(pairs)
+    old = torch.matmul(a.float(), b.float())
+    old_gram = torch.matmul(b.float().T, b.float())
+    assert got.dtype == gram.dtype == torch.float32
+    assert _rel(got.numpy(), old.numpy()) < 1e-6
+    assert _rel(gram.numpy(), old_gram.numpy()) < 1e-6

@@ -51,6 +51,15 @@ def test_importing_every_module_loads_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_walk_covers_the_solver_modules():
+    """The import check above walks these, the modules of the solver
+    slice among them."""
+    assert {"capital_tpu_torch.linalg", "capital_tpu_torch.algs.polar",
+            "capital_tpu_torch.algs.newton", "capital_tpu_torch.algs.tsqr",
+            "capital_tpu_torch.bench.solve",
+            "capital_tpu_torch.bench.inverse"} <= set(_modules())
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
