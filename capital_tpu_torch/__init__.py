@@ -4,8 +4,10 @@ Same module layout and public names as the JAX package (`Grid`,
 `DistMatrix`, `cholinv.Config`, `cholinv.factor`,
 `validate.cholesky_residual`, ...). It covers, on one device, the
 recursive Cholesky + inverse, LU with partial pivoting, CholeskyQR2, the
-solvers over them (QDWH polar, Newton-Schulz, TSQR, `linalg`) and the
-QDWH spectral layer (`eigh`, `svd`, the `linalg` matrix functions); their
+solvers over them (QDWH polar, Newton-Schulz, TSQR, `linalg`), the
+QDWH spectral layer (`eigh`, `svd`, the `linalg` matrix functions), the
+applications (`apps.rsvd`, `apps.als`) and the host-side storage (`io`,
+`native`); their
 four TPU kernels (TRMM, SYRK, the fused Cholesky leaf, the LU
 panel leaf) are hand-written CUDA kernels for Hopper (sm_90a) under
 `csrc/`, built with nvcc at first use.

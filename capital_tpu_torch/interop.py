@@ -1,9 +1,11 @@
 """Carry state across from the JAX package, as numpy.
 
-The factorizations and solvers have no weights: their state is the
-operand and the configuration. Both cross as plain data, so this module
-imports nothing of the JAX package: a caller hands over
-`np.asarray(dist_matrix.data)` and `dataclasses.asdict(cfg)`.
+The factorizations, solvers and applications have no weights: their
+state is the operand (ratings, factors) and the configuration. Both cross
+as plain data, so this module imports nothing of the JAX package: a
+caller hands over `np.asarray(dist_matrix.data)` (or any array, through
+torch.from_numpy), `dataclasses.asdict(cfg)` and, for sparse ALS, the
+four arrays of a SparseRatings.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from capital_tpu_torch.algs import (cacqr, cholinv, eigh, newton, polar,
                                     svd, tsqr)
+from capital_tpu_torch.apps import als, rsvd
 from capital_tpu_torch.grid import default_device
 from capital_tpu_torch.matrix import DistMatrix, Structure
 
@@ -107,3 +110,36 @@ def tsqr_config_from_dict(d: dict) -> tsqr.Config:
     an unknown field raises."""
     _check_fields(tsqr.Config, d)
     return tsqr.Config(**d)
+
+
+def rsvd_config_from_dict(d: dict) -> rsvd.Config:
+    """The port's rsvd.Config from `dataclasses.asdict` of the JAX one; the
+    nested `qr` dict goes through cacqr_config_from_dict. An unknown
+    field, here or nested, raises."""
+    _check_fields(rsvd.Config, d)
+    kw = dict(d)
+    if "qr" in kw:
+        kw["qr"] = cacqr_config_from_dict(kw["qr"])
+    return rsvd.Config(**kw)
+
+
+def als_config_from_dict(d: dict) -> als.Config:
+    """The port's als.Config from `dataclasses.asdict` of the JAX one; an
+    unknown field raises."""
+    _check_fields(als.Config, d)
+    return als.Config(**d)
+
+
+def sparse_ratings_from_numpy(idx, val, idx_t, val_t,
+                              device=None) -> als.SparseRatings:
+    """A SparseRatings on `device` (None: cuda:0, raising when no GPU is
+    present) from the JAX one's four arrays: the index buckets as int64,
+    the ratings in their own dtype."""
+    dev = default_device(device)
+
+    def t(x, dtype=None):
+        x = torch.from_numpy(np.array(x, copy=True))
+        return x.to(dev, dtype)
+
+    return als.SparseRatings(idx=t(idx, torch.int64), val=t(val),
+                             idx_t=t(idx_t, torch.int64), val_t=t(val_t))

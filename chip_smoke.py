@@ -107,6 +107,32 @@
    '2d' polar at its padded size; a cholinv leaf that is no multiple of
    128 is torch.linalg's, counted as chol_xla). The kernel phase adds
    TRMM side='R' and SYRK rows at the top sign's 8192^2 'highest' shape.
+10. The application layer and host storage, at the JAX package's sizes:
+   [rsvd] apps.rsvd of bench.rsvd's planted 2^18 x 2048 f32 operand
+   (k = 128, oversample 16, one power iteration; the JAX bench's default),
+   'highest'; [rsvd_bf16] 2^19 x 4096 in bf16 storage, k = 256,
+   oversample 32 (BENCH_LOCAL.md:41); [pca] apps.pca of a planted rank-32
+   2^16 x 512 operand with a column mean, k = 32; [als] apps.als.fit,
+   dense, 65536 users x 8192 items, rank 64, density 0.05, 5 iterations,
+   lam 0.05 (the JAX bench's defaults); [als_sparse] fit_sparse on 192
+   observations a user (12.6 M); [io] save_factor / load_factor of an
+   n = 4096 cholinv factor taken from the card (bitwise) and a
+   save_sharded / load_sharded round trip of it. Each rSVD call runs two
+   CholeskyQR2 factors of the f32 sketch: 4 TRMM side='R', 2 side='L', 4
+   SYRK and, as l is no multiple of 128, 4 torch.linalg Gram Choleskys
+   (chol_xla). Bounds: singular values within 5e-3 of the planted ones
+   (PCA's variances within 1e-4 of an f64 eigendecomposition of the
+   covariance), ||U^T U - I||_F < 1e-5 and ||A V^T - U diag(s)||_F /
+   ||A||_F < 1e-4 in f64 products (bf16 storage: below bf16's unit
+   roundoff 2^-8, as the JAX package rounds each sketch to bf16), ALS RMSE
+   < 0.08 (noise floor 0.05) with no kernel and no fallback run. The
+   library call for [rsvd] is torch.svd_lowrank(A, q=l, niter=1). Each
+   prints its calls' times, its peak memory above the operand and the
+   device's busy share of one profiled call; the core SVD of the first
+   call is also held to an f64 SVD of the same B (reported). The kernel
+   phase adds SYRK and TRMM side='R' rows at the sketches' shapes, 2^18 x
+   144 and 2^19 x 288 f32 'highest', with the plain Gram's
+   (blas.gram_dot) time beside them.
    Every main path zeroes the launch counters just before it and reads
    them just after: each kernel of the path must have run the number of
    times its call tree gives (every LU leaf on the resident route), and
@@ -129,7 +155,9 @@ and 0 launches. A TRMM row's case is its side and transpose, with
 beside 16384; SYRK's cacqr and polar rows have case "cacqr" and "polar";
 an LU leaf row's case is its strip's label. The rows "R:eigh" and "eigh"
 take their launches from the [eigh] run, and the leaf's n = 512 row
-carries that run's leaf launches as `launches_eigh`.
+carries that run's leaf launches as `launches_eigh`; the rows "rsvd",
+"R:rsvd", "rsvd_bf16" and "R:rsvd_bf16" from the first call of their
+rSVD path.
 """
 
 from __future__ import annotations
@@ -198,6 +226,20 @@ SPECTRAL_N, SPECTRAL_K = 4096, 128
 EIG_TOL = 1e-4       # residual and orthogonality in f64
 EIG_W_TOL = 1e-5     # eigen- and singular values against f64 (relative)
 SPECTRAL_TOL = 1e-4  # a matrix result against its f64 one (relative)
+# application layer: rSVD runs (m, n, k, oversample, power_iters, dtype),
+# the JAX bench's default and its bf16 run (BENCH_LOCAL.md:41, 120-121);
+# PCA (m, n, k); ALS (users, items, rank, density or observations a user,
+# iterations), the JAX bench's defaults; the io factor's n
+RSVD_RUNS = {"rsvd": (1 << 18, 2048, 128, 16, 1, "float32"),
+             "rsvd_bf16": (1 << 19, 4096, 256, 32, 1, "bfloat16")}
+PCA_RUN = (1 << 16, 512, 32)
+ALS_RUN = (65536, 8192, 64, 0.05, 5)
+ALS_SPARSE_RUN = (65536, 8192, 64, 192, 5)
+ALS_LAM, ALS_RMSE = 0.05, 0.08
+IO_N = 4096
+RSVD_SV_TOL, RSVD_ORTH_TOL, RSVD_RES_TOL = 5e-3, 1e-5, 1e-4
+RSVD_RES_TOL_BF16 = 2.0**-8   # bf16's unit roundoff
+PCA_TOL = 1e-4
 
 
 def smi() -> str:
@@ -419,6 +461,7 @@ def kernel_phase(level: str, failures: list) -> list:
     if level == "highest":
         polar_rows(gen, failures, add)
         eigh_rows(gen, failures, add)
+        rsvd_rows(gen, failures, add)
 
     if level == "high":
         bf16_syrk(gen, failures, add)
@@ -561,6 +604,51 @@ def eigh_rows(gen, failures: list, add) -> None:
     add("syrk_upper", "eigh", [n, n], got, plain_ms, want, ms, lib_ms, ops,
         4 * 2 * n * n, PEAK_F32)
     del a, u, got, want
+    torch.cuda.empty_cache()
+
+
+def rsvd_rows(gen, failures: list, add) -> None:
+    """SYRK (the Gram) and TRMM side='R' (formQ) of the rSVD paths'
+    CholeskyQR2 at their f32 sketch shapes, (m, l) = (2^18, 144) and (2^19,
+    288), 'highest', each held against its plain version on the whole
+    operand; G is bitwise symmetric. The plain Gram's time (blas.gram_dot,
+    the port's 'dot' route) is added beside SYRK's."""
+    from capital_tpu_torch.ops import blas
+    from capital_tpu_torch.ops.cuda_syrk import syrk_upper, syrk_upper_plain
+    from capital_tpu_torch.ops.cuda_trmm import trmm_upper, trmm_upper_plain
+
+    dev = gen.device
+    for case, (m, n, k, over, _, _) in RSVD_RUNS.items():
+        l = k + over
+        a = torch.rand((m, l), generator=gen, device=dev) - 0.5
+
+        def ks():
+            return syrk_upper(a, matmul_precision="highest")
+
+        ms = events_ms(ks, 5)
+        got = ks()
+        check_symmetric(got, f"syrk_upper[{case}]@highest", failures)
+        plain_ms, want = once_ms(lambda: syrk_upper_plain(a, prec="highest"))
+        lib_ms = events_ms(lambda: torch.matmul(a.T, a), 5)
+        row = add("syrk_upper", case, [m, l], got, plain_ms, want, ms, lib_ms,
+                  m * l * (l + 1), 4 * (m * l + l * l), PEAK_F32)
+        row["gram_dot_ms"] = events_ms(lambda: blas.gram_dot(a), 5)
+        del got, want
+        u = torch.triu(torch.rand((l, l), generator=gen, device=dev))
+        u.diagonal().add_(1.0)
+
+        def kt():
+            return trmm_upper(u, a, side="R", matmul_precision="highest")
+
+        ms = events_ms(kt, 5)
+        out = kt()
+        plain_ms, want = once_ms(lambda: trmm_upper_plain(u, a, side="R",
+                                                          prec="highest"))
+        lib_ms = events_ms(lambda: torch.matmul(a, u), 5)
+        add("trmm_upper", f"R:{case}", [m, l], out, plain_ms, want, ms,
+            lib_ms, m * l * (l + 1), 4 * (l * (l + 1) / 2 + 2 * l * m),
+            PEAK_F32)
+        del a, u, out, want
     torch.cuda.empty_cache()
 
 
@@ -1828,8 +1916,350 @@ def spectral_phase(failures: list) -> dict:
     return out
 
 
+def profiled_busy(fn, name: str) -> dict:
+    """The device's busy share of one call of fn: the union of its
+    kernels', copies' and fills' intervals (tracing.device_busy_ms) over
+    the call's wall time, from a torch.profiler trace that is written to
+    chiprun_out/ and removed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from capital_tpu_torch.tracing import device_busy_ms
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del out
+    os.makedirs("chiprun_out", exist_ok=True)
+    path = os.path.join("chiprun_out", f"trace_{name}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    busy = device_busy_ms(events)
+    launches = sum(1 for e in events if e.get("cat") == "kernel")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "busy_share": busy / wall_ms,
+            "device_kernels": launches}
+
+
+@contextlib.contextmanager
+def rsvd_cores(rec: list):
+    """Record each core B that apps.rsvd hands its thin SVD (harness code
+    for the core's accuracy check)."""
+    from capital_tpu_torch.apps import rsvd
+
+    core = rsvd._core_svd
+
+    def rec_core(b):
+        rec.append(b.detach().clone())
+        return core(b)
+
+    rsvd._core_svd = rec_core
+    try:
+        yield
+    finally:
+        rsvd._core_svd = core
+
+
+def rsvd_want(q: int, l: int) -> dict:
+    """Launches of one rSVD call: q + 1 CholeskyQR2 factors of the (m, l)
+    f32 sketch, each 2 TRMM side='R', 1 side='L', 2 SYRK and 2 Gram
+    Choleskys (the leaf kernel where 128 | l <= 1024, else torch.linalg's,
+    chol_xla)."""
+    want = zero_counts()
+    add_trmm(want, "R", 2 * (q + 1))
+    add_trmm(want, "L", q + 1)
+    want["syrk_upper"] += 2 * (q + 1)
+    leaf = l % 128 == 0 and l <= 1024
+    want["chol_inv" if leaf else "chol_xla"] += 2 * (q + 1)
+    return want
+
+
+def svd_errors_f64(a: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
+                   vt: torch.Tensor, rows: int = 1 << 16):
+    """(||U^T U - I||_F, ||A V^T - U diag(s)||_F / ||A||_F) in f64
+    products, row chunk by row chunk."""
+    k = u.shape[1]
+    g = torch.zeros((k, k), dtype=torch.float64, device=u.device)
+    v64, s64 = vt.double().T, s.double()
+    d2 = a2 = 0.0
+    for i in range(0, a.shape[0], rows):
+        uc, ac = u[i:i + rows].double(), a[i:i + rows].double()
+        g.addmm_(uc.T, uc)
+        d2 += float(torch.sum((ac @ v64 - uc * s64) ** 2))
+        a2 += float(torch.sum(ac ** 2))
+    g.diagonal().sub_(1.0)
+    return float(torch.linalg.norm(g)), (d2 / a2) ** 0.5
+
+
+def core_errors(b: torch.Tensor) -> dict:
+    """The card's f32 thin SVD of the rSVD core B and the port's own
+    _core_svd (f64, rounded back: F8), each timed (best of two) and held to
+    an f64 SVD of the same B: ||U_s^T U_s - I||_F and ||V^T V - I||_F in
+    f64, and the largest singular-value error over s_max."""
+    from capital_tpu_torch.apps import rsvd
+
+    s64 = torch.linalg.svdvals(b.double())
+
+    def errs(fn):
+        ms = min(once_ms(fn)[0] for _ in range(2))
+        us, s, vt = (x.double() for x in fn())
+        gu = us.T @ us
+        gv = vt @ vt.T
+        gu.diagonal().sub_(1.0)
+        gv.diagonal().sub_(1.0)
+        return {"ms": ms, "u_orth_f64": float(torch.linalg.norm(gu)),
+                "vt_orth_f64": float(torch.linalg.norm(gv)),
+                "s_err_f64": float(torch.max(torch.abs(s - s64)) / s64[0])}
+
+    return {"shape": list(b.shape),
+            "f32_svd": errs(lambda: torch.linalg.svd(
+                b.float(), full_matrices=False)),
+            "port_core_svd": errs(lambda: rsvd._core_svd(b))}
+
+
+def rsvd_path(name: str, failures: list) -> dict:
+    """apps.rsvd of bench.rsvd's planted operand (RSVD_RUNS[name]) at
+    'highest', two calls (the first counted, its peak and its core B
+    taken), one profiled for the busy share. Bounds: singular values within
+    RSVD_SV_TOL of the planted ones, ||U^T U - I||_F below RSVD_ORTH_TOL
+    and the subspace residual below RSVD_RES_TOL (bf16 storage:
+    RSVD_RES_TOL_BF16) in f64 products. The library call (f32 only) is
+    torch.svd_lowrank(A, q=l, niter=q)."""
+    from capital_tpu_torch import Grid
+    from capital_tpu_torch.apps import rsvd
+    from capital_tpu_torch.bench.rsvd import _planted
+    from capital_tpu_torch.ops.precision import default_matmul_precision
+
+    m, n, k, over, q, dtype = RSVD_RUNS[name]
+    l = k + over
+    grid = Grid.square(c=1, d=1)
+    with default_matmul_precision("highest"):
+        a, s_true = _planted(grid, m, n, k, getattr(torch, dtype), 0)
+    cfg = rsvd.Config(k=k, oversample=over, power_iters=q)
+    cores: list = []
+
+    def run():
+        return rsvd.rsvd(grid, a, cfg)
+
+    with default_matmul_precision("highest"):
+        with rsvd_cores(cores):
+            secs, (u, s, vt), got, _, peak = counted_call(run)
+        del u, s, vt
+        secs2, (u, s, vt) = once_ms(run)
+        busy = profiled_busy(run, name)
+    want = rsvd_want(q, l)
+    if got != want:
+        failures.append(f"{name}: launch counts {got} != {want}")
+    sv_err = float(torch.max(torch.abs(s - s_true) / s_true))
+    orth, res = svd_errors_f64(a, u, s, vt)
+    del u, s, vt
+    core = core_errors(cores[0])
+    del cores
+    res_tol = RSVD_RES_TOL if dtype == "float32" else RSVD_RES_TOL_BF16
+    for what, x, tol in (("sv_rel_err", sv_err, RSVD_SV_TOL),
+                         ("orthogonality_f64", orth, RSVD_ORTH_TOL),
+                         ("subspace_residual_f64", res, res_tol)):
+        if not x < tol:  # also fails on NaN
+            failures.append(f"{name}: {what} {x} not below {tol}")
+    best_ms = min(secs, secs2)
+    rec = {"m": m, "n": n, "k": k, "l": l, "power_iters": q, "dtype": dtype,
+           "precision": "highest", "ms": [secs, secs2],
+           "gflops": (2.0 * m * n * l * (2 * q + 2)
+                      + (q + 1) * 8.0 * m * l * l) / best_ms / 1e6,
+           "sv_rel_err": sv_err, "orthogonality_f64": orth,
+           "subspace_residual_f64": res,
+           "bounds": {"sv_rel_err": RSVD_SV_TOL,
+                      "orthogonality_f64": RSVD_ORTH_TOL,
+                      "subspace_residual_f64": res_tol},
+           "core": core, "launches": got, "peak_bytes_above_a": peak,
+           "operand_bytes": a.numel() * a.element_size(), **busy}
+    if dtype == "float32":
+        once_ms(lambda: torch.svd_lowrank(a[:4096], q=l, niter=q))
+        lib_ms, out = once_ms(lambda: torch.svd_lowrank(a, q=l, niter=q))
+        del out
+        rec.update(library_ms=lib_ms, vs_library=lib_ms / best_ms)
+    else:
+        rec.update(library_ms=None, vs_library=None)
+    del a
+    torch.cuda.empty_cache()
+    rec["card"] = smi()
+    print(f"[{name}] {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def pca_path(failures: list) -> dict:
+    """apps.pca of a planted rank-k (bench.rsvd's generator) PCA_RUN
+    operand plus a column mean of N(0, 1) entries, f32 'highest', k
+    components, oversample 8, one power iteration, two calls (the first
+    counted, its peak taken), one profiled. The
+    explained variance must lie within PCA_TOL (relative) of the top k
+    eigenvalues of the f64 covariance on the card, the mean within 1e-6
+    of the f64 mean, the components orthonormal within RSVD_ORTH_TOL."""
+    from capital_tpu_torch import Grid
+    from capital_tpu_torch.apps import rsvd
+    from capital_tpu_torch.bench.rsvd import _planted
+    from capital_tpu_torch.ops.precision import default_matmul_precision
+
+    m, n, k = PCA_RUN
+    grid = Grid.square(c=1, d=1)
+    gen = torch.Generator(device=grid.device).manual_seed(6)
+    with default_matmul_precision("highest"):
+        a, _ = _planted(grid, m, n, k, torch.float32, 1)
+    a += torch.randn((n,), generator=gen, device=grid.device)
+    cfg = rsvd.Config(k=k, oversample=8, power_iters=1)
+    with default_matmul_precision("highest"):
+        secs, (comps, var, mean), got, _, peak = counted_call(
+            lambda: rsvd.pca(grid, a, cfg))
+        secs2, _ = once_ms(lambda: rsvd.pca(grid, a, cfg))
+        busy = profiled_busy(lambda: rsvd.pca(grid, a, cfg), "pca")
+    want = rsvd_want(1, k + 8)
+    if got != want:
+        failures.append(f"pca: launch counts {got} != {want}")
+    x64 = a.double()
+    mean64 = x64.mean(0)
+    x64 -= mean64
+    w64 = torch.linalg.eigvalsh(x64.T @ x64 / (m - 1)).flip(0)[:k]
+    del x64
+    var_err = float(torch.max(torch.abs(var.double() - w64) / w64))
+    mean_err = float(torch.max(torch.abs(mean.double() - mean64)))
+    c64 = comps.double()
+    g = c64 @ c64.T
+    g.diagonal().sub_(1.0)
+    orth = float(torch.linalg.norm(g))
+    for what, x, tol in (("variance_rel_err_f64", var_err, PCA_TOL),
+                         ("mean_err_f64", mean_err, 1e-6),
+                         ("components_orthogonality_f64", orth,
+                          RSVD_ORTH_TOL)):
+        if not x < tol:
+            failures.append(f"pca: {what} {x} not below {tol}")
+    rec = {"m": m, "n": n, "k": k, "precision": "highest",
+           "ms": [secs, secs2], "variance_rel_err_f64": var_err,
+           "mean_err_f64": mean_err, "components_orthogonality_f64": orth,
+           "launches": got, "peak_bytes_above_a": peak, **busy,
+           "card": smi()}
+    del a, comps, var, mean
+    torch.cuda.empty_cache()
+    print(f"[pca] {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def als_path(sparse: bool, failures: list) -> dict:
+    """apps.als.fit (ALS_RUN, synthetic_ratings with planted rank 16) or
+    fit_sparse (ALS_SPARSE_RUN, synthetic_regular), f32 'highest', lam
+    ALS_LAM, data from seed 0, two calls (the first counted, its peak
+    above the data taken), one profiled. RMSE below ALS_RMSE; no kernel
+    and no fallback runs (the solves are the library's batched Cholesky)."""
+    from capital_tpu_torch import Grid
+    from capital_tpu_torch.apps import als
+    from capital_tpu_torch.ops.precision import default_matmul_precision
+
+    grid = Grid.square(c=1, d=1)
+    name = "als_sparse" if sparse else "als"
+    with default_matmul_precision("highest"):
+        if sparse:
+            users, items, k, obs, iters = ALS_SPARSE_RUN
+            gen_ms, data = once_ms(lambda: als.synthetic_regular(
+                grid, users, items, obs, 0))
+            cfg = als.Config(rank=k, lam=ALS_LAM, num_iters=iters)
+
+            def run():
+                return als.fit_sparse(grid, data, cfg, items=items)
+
+            nnz = users * obs
+            flops = iters * (4.0 * nnz * k**2 + (users + items) * k**3 / 3)
+            shape = {"users": users, "items": items, "rank": k, "nnz": nnz}
+        else:
+            users, items, k, density, iters = ALS_RUN
+            gen_ms, (r, m) = once_ms(lambda: als.synthetic_ratings(
+                grid, users, items, 0, rank=16, density=density))
+            cfg = als.Config(rank=k, lam=ALS_LAM, num_iters=iters)
+
+            def run():
+                return als.fit(grid, r, m, cfg)
+
+            flops = iters * (4.0 * users * items * k**2
+                             + (users + items) * k**3 / 3)
+            shape = {"users": users, "items": items, "rank": k,
+                     "density": density, "observed": float(m.sum())}
+        secs, (u, v, err), got, _, peak = counted_call(run)
+        del u, v
+        secs2, _ = once_ms(run)
+        busy = profiled_busy(run, name)
+    err = float(err)
+    want = zero_counts()
+    if got != want:
+        failures.append(f"{name}: launch counts {got} != {want}")
+    if not err < ALS_RMSE:
+        failures.append(f"{name}: rmse {err} not below {ALS_RMSE}")
+    best_ms = min(secs, secs2)
+    rec = {**shape, "iters": iters, "lam": ALS_LAM, "precision": "highest",
+           "generate_ms": gen_ms, "ms": [secs, secs2],
+           "gflops": flops / best_ms / 1e6, "rmse": err, "bound": ALS_RMSE,
+           "launches": got, "peak_bytes_above_data": peak, **busy,
+           "card": smi()}
+    print(f"[{name}] {json.dumps(rec)}", flush=True)
+    del run
+    torch.cuda.empty_cache()
+    return rec
+
+
+def io_phase(failures: list) -> dict:
+    """io.save_factor / load_factor of the R of cholinv.factor (n = IO_N,
+    f32 'highest') taken from the card, and io.save_sharded / load_sharded
+    of it, both into chiprun_out/ and removed after: each round trip must
+    be bitwise. The packed file's bytes and the native library's use are
+    reported."""
+    import shutil
+
+    from capital_tpu_torch import Grid, io, matrix, native
+    from capital_tpu_torch.algs import cholinv
+
+    grid = Grid.square(c=1, d=1)
+    a = matrix.symmetric(grid, IO_N, 4, align=128)
+    r, _ = cholinv.factor(grid, a, cholinv.Config())
+    r = torch.triu(r)
+    work = os.path.join("chiprun_out", "io_phase")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "factor.npz")
+    t0 = time.perf_counter()
+    io.save_factor(path, r, upper=True, meta={"seed": 4})
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    back, meta = io.load_factor(path)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    npz_equal = torch.equal(torch.from_numpy(back).to(r.device), r)
+    file_bytes = os.path.getsize(path)
+    ckpt = os.path.join(work, "ckpt")
+    t0 = time.perf_counter()
+    io.save_sharded(ckpt, {"r": r, "step": torch.tensor(7)})
+    out = io.load_sharded(ckpt, {"r": torch.zeros_like(r),
+                                 "step": torch.tensor(0)})
+    dcp_ms = (time.perf_counter() - t0) * 1e3
+    dcp_equal = torch.equal(out["r"], r) and int(out["step"]) == 7
+    shutil.rmtree(work)
+    for what, ok in (("npz round trip", npz_equal),
+                     ("seed metadata", int(meta["seed"]) == 4),
+                     ("save_sharded round trip", dcp_equal)):
+        if not ok:
+            failures.append(f"io: {what} is not bitwise")
+    rec = {"n": IO_N, "native_available": native.available(),
+           "save_factor_ms": save_ms, "load_factor_ms": load_ms,
+           "npz_bitwise": npz_equal, "npz_bytes": file_bytes,
+           "dense_bytes": 4 * IO_N * IO_N, "sharded_round_trip_ms": dcp_ms,
+           "sharded_bitwise": dcp_equal}
+    del a, r, out
+    torch.cuda.empty_cache()
+    print(f"[io] {json.dumps(rec)}", flush=True)
+    return rec
+
+
 def path_launches(row: dict, mains: list, lus: list, qrs: list,
-                  polars: list, eighs: list) -> tuple[bool, int]:
+                  polars: list, eighs: list,
+                  rsvds: dict) -> tuple[bool, int]:
     """(on_path, launches) of a kernel row: whether a main path runs its
     kernel at its precision, input type and kind of operand (the
     recursion's 128-aligned windows at most 32 x 512 rows deep; cacqr's
@@ -1855,6 +2285,10 @@ def path_launches(row: dict, mains: list, lus: list, qrs: list,
     if case in ("polar", "R:polar", "R,trans:polar"):
         got = polars[0]["launches"]  # the 2d headline, 'highest'
         return True, (got["trmm_upper_by_case"][case.split(":")[0]]
+                      if kernel == "trmm_upper" else got[kernel])
+    if case and case.split(":")[-1] in rsvds:  # the rSVD's first call
+        got = rsvds[case.split(":")[-1]]["launches"]
+        return True, (got["trmm_upper_by_case"]["R"]
                       if kernel == "trmm_upper" else got[kernel])
     if case in ("eigh", "R:eigh"):
         got = eighs[0]["launches"]  # the [eigh] headline, 'highest'
@@ -1921,9 +2355,15 @@ def main() -> int:
     svds = timed("svd", lambda: [svd_path(failures, keep)])
     partials = timed("eigh_partial", lambda: [partial_path(failures)])
     spectrals = timed("spectral", lambda: [spectral_phase(failures)])
+    rsvds = {name: timed(name, lambda name=name: rsvd_path(name, failures))
+             for name in RSVD_RUNS}
+    pcas = timed("pca", lambda: [pca_path(failures)])
+    alss = [timed("als", lambda: als_path(False, failures)),
+            timed("als_sparse", lambda: als_path(True, failures))]
+    ios = timed("io", lambda: [io_phase(failures)])
     for row in rows:
-        row["on_path"], row["launches"] = path_launches(row, mains, lus, qrs,
-                                                        polars, eighs)
+        row["on_path"], row["launches"] = path_launches(
+            row, mains, lus, qrs, polars, eighs, rsvds)
         if row["on_path"] and not row["launches"]:
             failures.append(f"{row['name']} never launched on the main path")
         if row["kernel"] == "chol_inv" and row["case"] == "n=512":
@@ -1932,6 +2372,7 @@ def main() -> int:
               "cacqr": qrs, "f3": f3, "polar": polars, "solve": solves,
               "lstsq": lstsqs, "linalg": linalgs, "eigh": eighs,
               "svd": svds, "eigh_partial": partials, "spectral": spectrals,
+              "rsvd": rsvds, "pca": pcas, "als": alss, "io": ios,
               "phase_s": phase_s, "failures": failures}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

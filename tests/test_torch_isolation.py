@@ -52,14 +52,18 @@ def test_importing_every_module_loads_no_jax():
 
 
 def test_walk_covers_the_solver_modules():
-    """The import check above walks these, the modules of the solver and
-    spectral slices among them."""
+    """The import check above walks these, the modules of the solver,
+    spectral and application slices and the host-side storage among
+    them."""
     assert {"capital_tpu_torch.linalg", "capital_tpu_torch.algs.polar",
             "capital_tpu_torch.algs.newton", "capital_tpu_torch.algs.tsqr",
             "capital_tpu_torch.bench.solve",
             "capital_tpu_torch.bench.inverse",
             "capital_tpu_torch.algs.eigh", "capital_tpu_torch.algs.svd",
-            "capital_tpu_torch.bench.eigh"} <= set(_modules())
+            "capital_tpu_torch.bench.eigh", "capital_tpu_torch.apps.rsvd",
+            "capital_tpu_torch.apps.als", "capital_tpu_torch.bench.rsvd",
+            "capital_tpu_torch.bench.als", "capital_tpu_torch.io",
+            "capital_tpu_torch.native"} <= set(_modules())
 
 
 def _imported_roots(path: Path):
