@@ -12,9 +12,9 @@ CholeskyQR2 (num_iter=2) runs the sweep twice and merges R <- R2 R1 with
 one more TRMM (side='L'). `factor` sends n <= local_thresh to the 1D path
 (rows over every device, Gram replicated) and larger n to the 3D path
 (Gram, Cholesky and Q through the SUMMA layer and the recursive cholinv).
-On one device every reduction of the Gram policies is the identity; the
-hybrid path needs a rect grid of more than one device (ROADMAP queue M,
-item M11) and raises.
+The hybrid path (`factor_hybrid`) forms the Gram as the 1D path does and
+factors it with the recursive cholinv on the grid's square (z, x) view.
+On one device every reduction of the Gram policies is the identity.
 """
 
 from __future__ import annotations
@@ -277,24 +277,61 @@ def factor_3d(grid: Grid, a, cfg: Config = Config()):
 # hybrid path: rows over a rect grid, Gram factored on its square view
 # ---------------------------------------------------------------------------
 
-def _no_hybrid():
-    raise NotImplementedError(
-        "the hybrid CholeskyQR path needs a rect grid of more than one "
-        "device; the port runs on one device until ROADMAP queue M, item "
-        "M11")
-
-
 def gram_hybrid(grid: Grid, a, policy: str = "two_stage",
-                kernel: str = "auto"):
-    """G = A^T A sharded on the rect grid's square (z, x) view. Not on
-    one device: raises NotImplementedError."""
-    _no_hybrid()
+                kernel: str = "auto") -> torch.Tensor:
+    """G = A^T A in A's dtype, laid out on the rect grid's square (z, x)
+    view. Across devices 'two_stage' reduce-scatters over x, then z, and
+    sums over the long y axis; 'allreduce' and 'packed' sum over the whole
+    mesh (the latter as the packed tile triangle). On one device every
+    reduction is the identity, so each policy is gram_1d's."""
+    return gram_1d(grid, a, policy, kernel=kernel)
+
+
+def _sweep_hybrid(grid: Grid, a: torch.Tensor, cfg: Config):
+    """Rows over the whole mesh (as the 1D path), the Gram factored by the
+    recursive cholinv on the square (z, x) view (as the 3D path); Q by a
+    local TRMM side='R' against the inverse."""
+    m, n = a.shape
+    with tracing.phase("CQR::gram"):
+        p = grid.num_devices
+        esz = a.element_size()
+        c = grid.c
+        if cfg.gram_policy == "two_stage":
+            comm = (tracing.psum_bytes(n * n * esz, c) / 2        # scatter x
+                    + tracing.psum_bytes(n * n * esz / c, c) / 2  # scatter z
+                    + tracing.psum_bytes(n * n * esz / (c * c), grid.d1))
+        else:
+            words = (_tri_pack_size(n)
+                     if cfg.gram_policy == "packed" and n % _PACK_T == 0
+                     else n * n)
+            comm = tracing.psum_bytes(words * esz, p)
+        tracing.record("gram_hybrid", flops=2.0 * m * n * n / p,
+                       comm_bytes=comm, msgs=3)
+        g = gram_hybrid(grid, a, cfg.gram_policy, kernel=cfg.gram_kernel)
+    sq = grid.view(z=None, y="z", x="x")  # square c x c slice
+    with tracing.phase("CQR::chol"):
+        r, rinv = cholinv.factor(sq, g, cfg.chol)
+    del g
+    with tracing.phase("CQR::formQ"):
+        q = blas.trmm(rinv, a, side="R", uplo="U", platform=grid.platform)
+    return q, r
 
 
 def factor_hybrid(grid: Grid, a, cfg: Config = Config()):
-    """CholeskyQR(2) with rows over a rect grid and the Gram factored on
-    its square view. Not on one device: raises NotImplementedError."""
-    _no_hybrid()
+    """CholeskyQR(2) with rows over a rect grid (c == d2) and the Gram
+    factored on its (z, x) square view. Returns (Q, R), R upper
+    triangular. A is left as it was."""
+    a = _operand(grid, a)
+    if grid.c != grid.d2:
+        raise ValueError(
+            f"hybrid path needs a rect grid with c == d2, got {grid.shape}")
+    q, r1 = _sweep_hybrid(grid, a, cfg)
+    if cfg.num_iter == 1:
+        return q, torch.triu(r1)
+    q, r2 = _sweep_hybrid(grid, q, cfg)
+    r = blas.trmm(r2, torch.triu(r1), side="L", uplo="U",
+                  platform=grid.platform)
+    return q, torch.triu(r)
 
 
 # ---------------------------------------------------------------------------
@@ -304,9 +341,9 @@ def factor_hybrid(grid: Grid, a, cfg: Config = Config()):
 def factor(grid: Grid, a, cfg: Config = Config(), *,
            overwrite_a: bool = False):
     """The 1D path for n <= cfg.local_thresh, else the 3D path. (The JAX
-    package's third branch, the hybrid path, needs a rect grid of more
-    than one device.) overwrite_a as for factor_1d; the 3D path never
-    writes over A."""
+    package's third branch sends a rect grid with 1 < c == d2 < d1 to
+    the hybrid path; the one-device grid is never one.) overwrite_a as
+    for factor_1d; the 3D path never writes over A."""
     arr = a.data if isinstance(a, DistMatrix) else a
     if arr.shape[1] <= cfg.local_thresh:
         return factor_1d(grid, arr, cfg, overwrite_a=overwrite_a)

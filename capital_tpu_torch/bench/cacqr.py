@@ -36,7 +36,8 @@ def main(argv=None):
                    choices=["allreduce", "two_stage", "packed"])
     p.add_argument("--path", default="auto",
                    choices=["auto", "1d", "3d", "hybrid"],
-                   help="auto = 1d; hybrid needs more than one device")
+                   help="auto = 1d; hybrid = factor_hybrid (on one device "
+                        "the Gram Cholesky is the recursive cholinv)")
     p.add_argument("--base-method", default="auto",
                    choices=["auto", "xla", "pallas"],
                    help="Gram Cholesky: pallas = the hand-written fused "

@@ -57,6 +57,15 @@ def force(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _perturb(args, i: int):
+    """Fresh inputs for timed call i: every floating tensor of the tuple
+    scaled by 1 + (i + 1) * 1e-7 (a new tensor; the caller's are kept),
+    other entries as they are."""
+    s = 1.0 + (i + 1) * 1e-7
+    return tuple(x * s if isinstance(x, torch.Tensor) and x.is_floating_point()
+                 else x for x in args)
+
+
 def apply_precision(args):
     """Context in which --precision holds (the driver's whole run)."""
     return precision.default_matmul_precision(

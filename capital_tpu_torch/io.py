@@ -8,10 +8,13 @@ capital_tpu/io.py).
     other.
   * export_block_cyclic / import_block_cyclic: ScaLAPACK-style
     block-cyclic panels.
-  * save_sharded / load_sharded: a nested dict of tensors (DistMatrix
-    leaves as their `.data`) through torch.distributed.checkpoint, the
-    counterpart of the JAX package's orbax checkpoints. Without a process
-    group it runs in this process alone.
+  * save_sharded / load_sharded: a tree of tensors (nested dicts, lists
+    and tuples; DistMatrix leaves as their `.data`) through
+    torch.distributed.checkpoint, the counterpart of the JAX package's
+    orbax checkpoints of any pytree. A dict is stored as it is; a list or
+    tuple tree is stored as nested dicts keyed by position ('0', '1',
+    ...), and load_sharded rebuilds its containers from the template.
+    Without a process group it runs in this process alone.
 
 Arrays come back as numpy f32, as the JAX package returns them.
 """
@@ -73,27 +76,62 @@ def _single_process() -> bool:
     return not (dist.is_available() and dist.is_initialized())
 
 
-def save_sharded(path: str, tree: dict):
-    """Checkpoint a nested dict of tensors (DistMatrix leaves included)
-    with torch.distributed.checkpoint into directory `path`."""
+def _as_dicts(tree):
+    """The tree with every list and tuple turned into a dict keyed by
+    position ('0', '1', ...): the form the checkpoint stores."""
+    if isinstance(tree, dict):
+        return {k: _as_dicts(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): _as_dicts(v) for i, v in enumerate(tree)}
+    return tree
+
+
+def _like(template, tree):
+    """Undo _as_dicts: `tree` rebuilt with the containers of `template`."""
+    if isinstance(template, dict):
+        return {k: _like(v, tree[k]) for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_like(v, tree[str(i)])
+                              for i, v in enumerate(template))
+    return tree
+
+
+def _checkpoint_tree(tree):
+    """The tree as the checkpoint stores it: a dict as it is, a list or
+    tuple through _as_dicts; a bare leaf is refused (as orbax does)."""
+    tree = tree_map_distmatrix(tree)
+    if isinstance(tree, dict):
+        return tree
+    if isinstance(tree, (list, tuple)):
+        return _as_dicts(tree)
+    raise ValueError("save_sharded/load_sharded take a dict, list or tuple "
+                     f"of tensors, not a bare {type(tree).__name__}")
+
+
+def save_sharded(path: str, tree):
+    """Checkpoint a tree of tensors (nested dicts, lists and tuples;
+    DistMatrix leaves included) with torch.distributed.checkpoint into
+    directory `path`."""
     import torch.distributed.checkpoint as dcp
 
-    dcp.save(tree_map_distmatrix(tree), checkpoint_id=_abspath(path),
+    dcp.save(_checkpoint_tree(tree), checkpoint_id=_abspath(path),
              no_dist=_single_process())
 
 
-def load_sharded(path: str, template: dict) -> dict:
+def load_sharded(path: str, template):
     """Restore a save_sharded checkpoint into tensors shaped like
-    `template`'s (a nested dict of tensors or DistMatrix; each restored
-    tensor lies on its template's device). Returns the restored tree; the
-    template is not written."""
+    `template`'s (the saved tree's structure, with tensors or DistMatrix
+    leaves; each restored tensor lies on its template's device). Returns
+    the restored tree, with the template's containers; the template is
+    not written."""
     import torch.distributed.checkpoint as dcp
 
-    out = _tree_map(
+    template = tree_map_distmatrix(template)
+    out = _checkpoint_tree(_tree_map(
         lambda x: torch.empty_like(x) if isinstance(x, torch.Tensor) else x,
-        tree_map_distmatrix(template))
+        template))
     dcp.load(out, checkpoint_id=_abspath(path), no_dist=_single_process())
-    return out
+    return out if isinstance(template, dict) else _like(template, out)
 
 
 def export_block_cyclic(a, pr: int, pc: int, bb: int = 32) -> np.ndarray:

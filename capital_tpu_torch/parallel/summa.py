@@ -44,11 +44,17 @@ def _record_gemm_cost(grid: Grid, a_shape, b_shape, esz: int,
     tracing.record("summa.gemm", flops=flops, comm_bytes=comm, msgs=2 + cc)
 
 
+IMPLS = ("shard_map", "ring", "gspmd")
+
+
 def gemm(grid: Grid, a, b, *, c=None, alpha=1.0, beta=0.0, impl="gspmd",
          num_chunks: int = 1, throttle: bool = False,
          collect_chunks: int = 1):
-    """C = alpha * A @ B + beta * C. On one device every impl is the same
-    local product; the schedule knobs only matter across devices."""
+    """C = alpha * A @ B + beta * C. On one device every impl in IMPLS is
+    the same local product (any other raises ValueError, as in the JAX
+    package); the schedule knobs only matter across devices."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown summa impl {impl!r}")
     _record_gemm_cost(grid, a.shape, b.shape, a.element_size(),
                       collect_chunks=collect_chunks)
     out = _pdot(a, b).to(a.dtype)

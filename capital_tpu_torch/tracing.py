@@ -44,6 +44,27 @@ class Costs:
         self.calls += 1
 
 
+@dataclass(frozen=True)
+class Rates:
+    """A card's peak rates for Tracer.model_time: flop/s by precision
+    level ('highest' the f32 FFMA route, 'high' three bf16 tensor-core
+    passes, 'default' one) and the link's bytes/s in one direction."""
+
+    card: str
+    flops_per_s: dict
+    link_bytes_per_s: float
+
+
+# NVIDIA H100 80GB HBM3 (SXM5) at its 700 W power limit, NVIDIA's data
+# sheet, dense: 67 TFLOP/s FFMA f32, 989 TFLOP/s bf16 tensor cores,
+# NVLink 4 at 450 GB/s a direction. The autotuner's and bench/scaling.py's
+# cost model; on one device every recorded link byte is 0.
+H100 = Rates(card="NVIDIA H100 80GB HBM3, 700 W",
+             flops_per_s={"highest": 67e12, "high": 989e12 / 3,
+                          "default": 989e12},
+             link_bytes_per_s=450e9)
+
+
 class Tracer:
     """Accumulates analytic costs per phase.
 
@@ -89,6 +110,16 @@ class Tracer:
                 f"{k:<{w}}  {c.flops/1e9:>10.3f}  {c.comm_bytes/2**20:>10.3f}"
                 f"  {c.msgs:>6d}  {c.calls:>6d}")
         return "\n".join(out)
+
+    def model_time(self, flops_per_s: float, ici_bytes_per_s: float,
+                   latency_s: float = 1e-6) -> float:
+        """Roofline estimate max(flops / rate, link bytes / link rate) +
+        latency * messages: the cost model the autotuner scores a
+        candidate with (the JAX package's formula; the rates are the
+        caller's, e.g. H100 below)."""
+        t = self.totals()
+        return max(t.flops / flops_per_s, t.comm_bytes / ici_bytes_per_s) + (
+            latency_s * t.msgs)
 
 
 _tls = threading.local()

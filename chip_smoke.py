@@ -2,6 +2,8 @@
 """Chip smoke test of the PyTorch/CUDA port (capital_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profile-check N   # how often a one-call
+                                              # profile misses kernels
 
 1. Builds the hand-written CUDA kernels from capital_tpu_torch/csrc/ (one
    nvcc per source, all at once).
@@ -133,6 +135,23 @@
    phase adds SYRK and TRMM side='R' rows at the sketches' shapes, 2^18 x
    144 and 2^19 x 288 f32 'highest', with the plain Gram's
    (blas.gram_dot) time beside them.
+11. The autotuner and the one-device drivers: [autotune] tune.main for
+   cholinv, cacqr, LU and eigh at its defaults (n = 4096, cacqr 2^18 x
+   4096, the default spaces and --num-iter; tables under
+   chiprun_out/autotune/), each alg's best params, time, candidate and
+   error counts printed; any candidate error fails (the JAX tuner's
+   one-device spaces hold only configs valid for these shapes), and each
+   sweep must launch the kernels its path reaches; [hybrid]
+   cacqr.factor_hybrid on the one-device rect grid at 2^20 x 1024 f32
+   'highest' (launches from its call tree, orthogonality and residual by
+   the kernels and in f64 below 1e-5, its time beside factor_1d's on the
+   same operand); [cyclic] cholinv_cyclic.factor at n = 8192 'highest',
+   base case 512 (16 Cholesky leaves and no other kernel: its window
+   products are plain products; residuals below 1e-5; its time beside
+   cholinv.factor's); [drivers] bench.summa_gemm at 8192^3 'highest'
+   (tile_rel_err below 1e-5), bench.scaling --alg cholinv, entry()'s step
+   (residuals below 1e-5) and the four examples, each held to its own
+   bounds and launching its kernels.
    Every main path zeroes the launch counters just before it and reads
    them just after: each kernel of the path must have run the number of
    times its call tree gives (every LU leaf on the resident route), and
@@ -157,7 +176,9 @@ an LU leaf row's case is its strip's label. The rows "R:eigh" and "eigh"
 take their launches from the [eigh] run, and the leaf's n = 512 row
 carries that run's leaf launches as `launches_eigh`; the rows "rsvd",
 "R:rsvd", "rsvd_bf16" and "R:rsvd_bf16" from the first call of their
-rSVD path.
+rSVD path. Every row also carries `launches_autotune`, `launches_hybrid`,
+`launches_cyclic` and `launches_drivers`: its kernel's (for TRMM, its
+case's) launches in those phases, at every precision.
 """
 
 from __future__ import annotations
@@ -240,6 +261,24 @@ IO_N = 4096
 RSVD_SV_TOL, RSVD_ORTH_TOL, RSVD_RES_TOL = 5e-3, 1e-5, 1e-4
 RSVD_RES_TOL_BF16 = 2.0**-8   # bf16's unit roundoff
 PCA_TOL = 1e-4
+# the autotuner (tune.main at its defaults: cholinv, LU and eigh n = 4096,
+# cacqr 2^18 x 4096, the default spaces and --num-iter) and the kernels
+# each alg's sweep must reach; the hybrid CholeskyQR at cacqr's headline
+# shape; the cyclic-workspace cholinv (n, base case); the SUMMA gemm
+# driver's default m = k = n
+AUTOTUNE_ALGS = {"cholinv": ("trmm_upper", "syrk_upper", "chol_inv"),
+                 "cacqr": ("trmm_upper", "syrk_upper"),
+                 "lu": ("getrf_leaf",),
+                 "eigh": ("trmm_upper", "syrk_upper", "chol_inv")}
+HYBRID_SHAPE = (1 << 20, 1024)
+CYCLIC_RUN = (8192, 512)
+SUMMA_GEMM_TOL = 1e-5
+# the examples' kernels: each must launch at least once in its run
+EXAMPLE_KERNELS = {
+    "gp_regression": ("trmm_upper", "syrk_upper"),
+    "orthogonalize_embeddings": ("trmm_upper", "syrk_upper", "chol_inv"),
+    "spectral_analysis": ("trmm_upper", "syrk_upper"),
+    "steady_state_transport": ("getrf_leaf",)}
 
 
 def smi() -> str:
@@ -755,17 +794,54 @@ def bf16_syrk(gen, failures: list, add) -> None:
         precision="default")
 
 
-def device_launches(fn) -> int:
-    """Kernels the card runs for one call of fn (torch.profiler)."""
+# One-call profiles lose kernel events on the H100 in two ways
+# (`python3 chip_smoke.py --profile-check N`, PERF.md section 6): the call's
+# first kernel, when the call starts as the session starts, and, in one or
+# two sessions a thousand, a few at a time, every event of the session. So
+# a session waits PROFILE_SETTLE_S, then launches a witness kernel
+# (WITNESS) before the call: a session without the witness lost events, is
+# not a reading, and is taken again after PROFILE_RETRY_S.
+PROFILE_SETTLE_S = 2e-3
+PROFILE_RETRY_S = 0.2
+PROFILE_TRIES = 5
+WITNESS = "bitwise_not"
+
+
+def profiled_kernels(fn, settle: bool = True) -> tuple[dict, bool]:
+    """(kernel events by name, copies and the witness left out; whether
+    the witness was seen) of one torch.profiler session around one call
+    of fn. settle=False profiles the bare call, with no wait and no
+    witness (and so always reports the witness as seen)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    mark = torch.zeros(1, dtype=torch.int32, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if settle:
+            time.sleep(PROFILE_SETTLE_S)
+            mark.bitwise_not_()
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_time_total > 0 and not e.key.startswith("Memcpy"))
+    seen = {e.key: e.count for e in prof.key_averages()
+            if e.device_time_total > 0 and not e.key.startswith("Memcpy")}
+    witness = [k for k in seen if WITNESS in k]
+    for k in witness:
+        del seen[k]
+    return seen, bool(witness) or not settle
+
+
+def device_launches(fn) -> tuple[int, int]:
+    """(kernels the card runs for one call of fn, profiles that lost their
+    events on the way), from the first profile that kept its witness."""
+    fn()
+    torch.cuda.synchronize()
+    for lost in range(PROFILE_TRIES):
+        seen, kept = profiled_kernels(fn)
+        if kept:
+            return sum(seen.values()), lost
+        time.sleep(PROFILE_RETRY_S)
+    raise RuntimeError(f"{PROFILE_TRIES} profiles in a row lost their "
+                       "events")
 
 
 def leaf_rows(gen, add) -> None:
@@ -794,8 +870,8 @@ def leaf_rows(gen, add) -> None:
                   (torch.triu(pr), torch.triu(pri)), ms, lib_ms,
                   2 * nl**3 / 3, 4 * 3 * nl * nl, PEAK_F32,
                   precision="f32")
-        row["device_launches_per_call"] = device_launches(
-            lambda: chol_inv_cuda(a))
+        row["device_launches_per_call"], row["profiles_lost"] = \
+            device_launches(lambda: chol_inv_cuda(a))
         print(f"[kernel] chol_inv n={nl}: device launches per call "
               f"{row['device_launches_per_call']}", flush=True)
 
@@ -911,7 +987,9 @@ def leaf_phase(failures: list) -> list:
         rel, mae = compare(win, want)
         same = torch.equal(pj, pj_p) and torch.equal(piv, piv_p)
         bitwise = torch.equal(win.view(torch.int32), want.view(torch.int32))
-        launches = device_launches(k) - device_launches(restore)
+        (with_copy, lost_k), (copy, lost_r) = (device_launches(k),
+                                               device_launches(restore))
+        launches = with_copy - copy
         b_ms, b_by = bound(mm * ib * ib, 2 * mm * ib * 4, PEAK_F32)
         row = {"name": f"getrf_leaf[{label}]", "kernel": "getrf_leaf",
                "case": label, "route": "cuda", "source": SOURCE["getrf_leaf"],
@@ -921,7 +999,8 @@ def leaf_phase(failures: list) -> list:
                "max_abs_err": mae, "rel_err": rel, "pivots_equal": same,
                "factor_bitwise": bitwise, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-               "device_launches_per_call": launches}
+               "device_launches_per_call": launches,
+               "profiles_lost": lost_k + lost_r}
         rows.append(row)
         print(f"[kernel] {row['name']}: route={how.route} "
               f"ctas={how.blocks} rows_per_cta={how.rows_per} "
@@ -2257,6 +2336,233 @@ def io_phase(failures: list) -> dict:
     return rec
 
 
+def autotune_phase(failures: list) -> dict:
+    """tune.main for each alg of AUTOTUNE_ALGS at its defaults, the tables
+    under chiprun_out/autotune/. A candidate error fails the phase: the
+    JAX tuner's one-device default spaces hold only configs valid for
+    these shapes, so it records none. Each alg's sweep must launch every
+    kernel its path reaches."""
+    from capital_tpu_torch.autotune import tune
+    from capital_tpu_torch.ops import counters, reset_counters
+
+    work = os.path.join("chiprun_out", "autotune")
+    os.makedirs(work, exist_ok=True)
+    out = {}
+    for alg, kernels in AUTOTUNE_ALGS.items():
+        reset_counters()
+        t0 = time.perf_counter()
+        cands = tune.main(["--alg", alg, "--prefix",
+                           os.path.join(work, f"autotune_torch_{alg}")])
+        secs = time.perf_counter() - t0
+        got = counters()
+        errors = [c.error for c in cands if c.error]
+        best = tune.best(cands)
+        for err in errors:
+            failures.append(f"autotune {alg}: candidate error {err}")
+        for k in kernels:
+            if not got[k]:
+                failures.append(f"autotune {alg}: {k} never launched")
+        out[alg] = {"candidates": len(cands), "errors": len(errors),
+                    "best": best.params, "best_time_s": best.time_s,
+                    "best_model_s": best.model_time_s,
+                    "best_costs": best.costs, "seconds": secs,
+                    "launches": got,
+                    "records": [c.record() for c in cands]}
+        print(f"[autotune] {alg}: best {json.dumps(best.params)} "
+              f"{best.time_s * 1e3:.3f} ms (model "
+              f"{best.model_time_s * 1e3:.3f} ms), {len(cands)} candidates, "
+              f"{len(errors)} errors, {secs:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_phase(failures: list) -> dict:
+    """cacqr.factor_hybrid on the one-device rect grid at HYBRID_SHAPE,
+    f32 'highest', the two-stage Gram policy; two calls, then
+    cacqr.factor_1d on the same operand. A factor runs two sweeps, each a
+    SYRK Gram, the recursive cholinv of the 1024^2 Gram on the square view
+    (base case 512) and a TRMM side='R', and one TRMM side='L' to merge.
+    Orthogonality and residual below 1e-5, by the kernels and in f64."""
+    from capital_tpu_torch import Grid, matrix, validate
+    from capital_tpu_torch.algs import cacqr, cholinv
+    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops.precision import default_matmul_precision
+
+    m, n = HYBRID_SHAPE
+    grid = Grid.rect(c=1)
+    cfg = cacqr.Config(gram_policy="two_stage")
+    a = matrix.tall_skinny(grid, m, n, 0).data
+    with default_matmul_precision("highest"):
+        reset_counters()
+        secs, (q, r) = once_ms(lambda: cacqr.factor_hybrid(grid, a, cfg))
+        got = counters()
+        del q, r
+        secs2, (q, r) = once_ms(lambda: cacqr.factor_hybrid(grid, a, cfg))
+        one = [once_ms(lambda: cacqr.factor_1d(grid, a, cfg))[0]
+               for _ in range(2)]
+    want = zero_counts()
+    add_cholinv(want, n, cholinv.Config().base_dim(grid, n), times=2)
+    want["syrk_upper"] += 2
+    add_trmm(want, "R", 2)
+    add_trmm(want, "L", 1)
+    if got != want:
+        failures.append(f"hybrid: launch counts {got} != {want}")
+    orth = float(validate.qr_orthogonality(grid, q))
+    res = float(validate.qr_residual(grid, a, q, r))
+    orth64, res64 = qr_errors_f64(a, q, r)
+    del q, r, a
+    for what, x in (("orthogonality", orth), ("residual", res),
+                    ("orthogonality_f64", orth64), ("residual_f64", res64)):
+        if not x < QR_TOL:  # also fails on NaN
+            failures.append(f"hybrid: {what} {x} not below {QR_TOL}")
+    torch.cuda.empty_cache()
+    rec = {"m": m, "n": n, "precision": "highest", "ms": [secs, secs2],
+           "factor_1d_ms": one, "orthogonality": orth, "residual": res,
+           "orthogonality_f64": orth64, "residual_f64": res64,
+           "launches": got}
+    print(f"[hybrid] {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def cyclic_phase(failures: list) -> dict:
+    """cholinv_cyclic.factor at CYCLIC_RUN, f32 'highest': the window
+    products are plain products, so the Cholesky leaf runs alone, once a
+    512-row leaf (16 at n = 8192); two calls, then cholinv.factor on the
+    same operand. Residuals below 1e-5."""
+    from capital_tpu_torch import Grid, matrix, validate
+    from capital_tpu_torch.algs import cholinv, cholinv_cyclic
+    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops.precision import default_matmul_precision
+
+    n, bc = CYCLIC_RUN
+    grid = Grid.square(c=1, d=1)
+    cfg = cholinv.Config(min_bc=bc)
+    a = matrix.symmetric(grid, n, 0, align=128).data
+    with default_matmul_precision("highest"):
+        reset_counters()
+        secs, (r, ri) = once_ms(lambda: cholinv_cyclic.factor(grid, a, cfg))
+        got = counters()
+        del r, ri
+        secs2, (r, ri) = once_ms(lambda: cholinv_cyclic.factor(grid, a, cfg))
+        block = [once_ms(lambda: cholinv.factor(grid, a, cfg))[0]
+                 for _ in range(2)]
+    want = zero_counts()
+    want["chol_inv"] = tree(n, bc)[0]
+    if got != want:
+        failures.append(f"cyclic: launch counts {got} != {want}")
+    inv = float(validate.inverse_residual(grid, r, ri, chunks=8))
+    res = float(validate.cholesky_residual(grid, a, r, chunks=8))
+    del r, ri, a
+    if not (res < 1e-5 and inv < 1e-5):  # also fails on NaN
+        failures.append(f"cyclic: residual {res} / inverse residual {inv} "
+                        "not below 1e-5")
+    torch.cuda.empty_cache()
+    rec = {"n": n, "bc": bc, "precision": "highest", "ms": [secs, secs2],
+           "cholinv_factor_ms": block, "residual": res,
+           "inv_residual": inv, "launches": got}
+    print(f"[cyclic] {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def drivers_phase(failures: list) -> dict:
+    """bench.summa_gemm at its default 8192^3, 'highest' (tile_rel_err
+    below 1e-5, no kernel); bench.scaling --alg cholinv (n = 1024, base
+    case 128 on torch.linalg's leaf, as the JAX driver's config: TRMM and
+    SYRK each inner node, two calls); entry()'s step (one Cholesky leaf,
+    residuals below 1e-5); the four examples, each asserting its own
+    bounds and launching the kernels EXAMPLE_KERNELS lists."""
+    import importlib
+
+    from capital_tpu_torch import Grid, validate
+    from capital_tpu_torch.bench import scaling, summa_gemm
+    from capital_tpu_torch.entry import entry
+    from capital_tpu_torch.ops import counters, reset_counters
+
+    out = {}
+    reset_counters()
+    rec = summa_gemm.main(["--json"])
+    got = counters()
+    if got != zero_counts():
+        failures.append(f"summa_gemm: launch counts {got}")
+    if not rec.get("tile_rel_err", 1.0) < SUMMA_GEMM_TOL:
+        failures.append(f"summa_gemm: tile_rel_err {rec.get('tile_rel_err')}"
+                        f" not below {SUMMA_GEMM_TOL}")
+    out["summa_gemm"] = {**rec, "launches": got}
+
+    reset_counters()
+    (row,) = scaling.main(["--alg", "cholinv"])
+    got = counters()
+    leaves, inner = tree(1024, 128)
+    want = zero_counts()
+    for case in ("L", "L,trans", "R"):
+        add_trmm(want, case, 2 * inner)
+    want["syrk_upper"] = 2 * inner
+    want["chol_xla"] = 2 * leaves
+    if got != want:
+        failures.append(f"scaling: launch counts {got} != {want}")
+    out["scaling"] = {**row, "launches": got}
+
+    fn, (a,) = entry()
+    reset_counters()
+    ms, (r, ri) = once_ms(lambda: fn(a))
+    got = counters()
+    grid = Grid.square()
+    res = float(validate.cholesky_residual(grid, a, r))
+    inv = float(validate.inverse_residual(grid, r, ri))
+    want = zero_counts()
+    want["chol_inv"] = 1
+    if got != want:
+        failures.append(f"entry: launch counts {got} != {want}")
+    if not (res < 1e-5 and inv < 1e-5):
+        failures.append(f"entry: residual {res} / inverse residual {inv} "
+                        "not below 1e-5")
+    out["entry"] = {"n": a.shape[0], "ms": ms, "residual": res,
+                    "inv_residual": inv, "launches": got}
+    del a, r, ri
+
+    from capital_tpu_torch.examples import bounds_held
+
+    for name, kernels in EXAMPLE_KERNELS.items():
+        mod = importlib.import_module(f"capital_tpu_torch.examples.{name}")
+        reset_counters()
+        t0 = time.perf_counter()
+        try:
+            figs = mod.main()
+        except AssertionError as exc:  # the example's own check
+            failures.append(f"example {name}: bound failed: {exc}")
+            figs = {}
+        got = counters()
+        held = bounds_held(figs)
+        if figs and not held:
+            failures.append(f"example {name}: no bound returned")
+        for what, value, bound, ok in held:
+            if not ok:
+                failures.append(f"example {name}: {what} {value} against "
+                                f"{bound}")
+        for k in kernels:
+            if not got[k]:
+                failures.append(f"example {name}: {k} never launched")
+        out[name] = {k: (v.tolist() if hasattr(v, "tolist") else v)
+                     for k, v in figs.items()}
+        out[name].update(seconds=time.perf_counter() - t0, launches=got)
+        torch.cuda.empty_cache()
+    for name, rec in out.items():
+        print(f"[drivers] {name} {json.dumps(rec)}", flush=True)
+    return out
+
+
+def phase_launches(row: dict, phases: dict) -> dict:
+    """{phase: launches of the row's kernel (for TRMM, of its case) in
+    that phase's runs}, for the phases whose records carry `launches`."""
+    out = {}
+    for name, got in phases.items():
+        if row["kernel"] == "trmm_upper":
+            out[name] = got["trmm_upper_by_case"][row["case"].split(":")[0]]
+        else:
+            out[name] = got[row["kernel"]]
+    return out
+
+
 def path_launches(row: dict, mains: list, lus: list, qrs: list,
                   polars: list, eighs: list,
                   rsvds: dict) -> tuple[bool, int]:
@@ -2305,6 +2611,76 @@ def path_launches(row: dict, mains: list, lus: list, qrs: list,
     if case in off_path:
         return False, 0
     return True, got[kernel]
+
+
+def profile_check(reps: int) -> int:
+    """How often a one-call profile misses kernels that ran: the 128 x 128
+    LU leaf strip of LEAF_STRIPS (its restoring copy, then the leaf) and
+    the Cholesky leaf at n = 128, each profiled `reps` times bare
+    (profiled_kernels(settle=False)) and `reps` times as device_launches
+    takes one reading (the wait and the witness), in turn; beside each
+    reading, whether the witness was seen, the launches the wrapper counted
+    in that call (ops.counters()) and its start in seconds. Readings to
+    chiprun_out/profile_check.json."""
+    from capital_tpu_torch.ops import _build, counters
+    from capital_tpu_torch.ops.cuda_chol import chol_inv_cuda
+    from capital_tpu_torch.ops.cuda_getrf import getrf_leaf
+
+    print(f"[build] {_build.build():.1f} s", flush=True)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    ws = torch.empty((128, 32768), device=dev)
+    win = ws[:, :128]
+    src = torch.randn((128, 128), generator=gen, device=dev)
+    x = torch.rand((128, 128), generator=gen, device=dev) - 0.5
+    spd = x @ x.T + (128 / 12) * torch.eye(128, device=dev)
+
+    def leaf():
+        win.copy_(src)
+        return getrf_leaf(win)
+
+    cases = {"getrf_leaf[128x128]": (leaf, "getrf_leaf", 2),
+             "chol_inv n=128": (lambda: chol_inv_cuda(spd), "chol_inv", 1)}
+    readings = {f"{name} {how}": [] for name in cases
+                for how in ("bare", "settled")}
+    t0 = time.perf_counter()
+    for name, (fn, key, _) in cases.items():
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            for how in ("bare", "settled"):
+                before = counters()[key]
+                at = time.perf_counter() - t0
+                seen, kept = profiled_kernels(fn, settle=how == "settled")
+                readings[f"{name} {how}"].append(
+                    {"kernels": seen, "witness": kept, "at_s": at,
+                     "wrapper_launches": counters()[key] - before})
+    summary = {}
+    for name, (_, _, want) in cases.items():
+        for how in ("bare", "settled"):
+            rs = readings[f"{name} {how}"]
+            tot = [sum(r["kernels"].values()) for r in rs]
+            kept = [t for t, r in zip(tot, rs) if r["witness"]]
+            summary[f"{name} {how}"] = {
+                "reps": len(rs), "kernels_per_call": want,
+                "short": sum(t < want for t in tot),
+                "empty": sum(t == 0 for t in tot),
+                "witness_lost": len(rs) - len(kept),
+                "witness_lost_at_s": [round(r["at_s"], 2) for r in rs
+                                      if not r["witness"]],
+                "short_with_witness": sum(t < want for t in kept),
+                "over": sum(t > want for t in tot),
+                "wrapper_launches": sorted({r["wrapper_launches"]
+                                            for r in rs})}
+            print(f"[profile_check] {name} {how}: "
+                  f"{json.dumps(summary[f'{name} {how}'])}", flush=True)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "profile_check.json"), "w") as f:
+        json.dump({"card": smi(), "summary": summary, "readings": readings},
+                  f)
+    bad = [k for k, v in summary.items() if "settled" in k
+           and (v["short_with_witness"] or v["over"])]
+    return 1 if bad else 0
 
 
 def main() -> int:
@@ -2361,6 +2737,16 @@ def main() -> int:
     alss = [timed("als", lambda: als_path(False, failures)),
             timed("als_sparse", lambda: als_path(True, failures))]
     ios = timed("io", lambda: [io_phase(failures)])
+    tunes = timed("autotune", lambda: autotune_phase(failures))
+    hybrids = timed("hybrid", lambda: [hybrid_phase(failures)])
+    cyclics = timed("cyclic", lambda: [cyclic_phase(failures)])
+    drivers = timed("drivers", lambda: drivers_phase(failures))
+    new_phases = {"hybrid": hybrids[0]["launches"],
+                    "cyclic": cyclics[0]["launches"]}
+    for key, part in (("autotune", tunes), ("drivers", drivers)):
+        new_phases[key] = zero_counts()
+        for rec in part.values():
+            add_counts(new_phases[key], rec["launches"])
     for row in rows:
         row["on_path"], row["launches"] = path_launches(
             row, mains, lus, qrs, polars, eighs, rsvds)
@@ -2368,12 +2754,15 @@ def main() -> int:
             failures.append(f"{row['name']} never launched on the main path")
         if row["kernel"] == "chol_inv" and row["case"] == "n=512":
             row["launches_eigh"] = eighs[0]["launches"]["chol_inv"]
+        row.update({f"launches_{k}": v
+                    for k, v in phase_launches(row, new_phases).items()})
     result = {"card": card, "kernels": rows, "main": mains, "lu": lus,
               "cacqr": qrs, "f3": f3, "polar": polars, "solve": solves,
               "lstsq": lstsqs, "linalg": linalgs, "eigh": eighs,
               "svd": svds, "eigh_partial": partials, "spectral": spectrals,
               "rsvd": rsvds, "pca": pcas, "als": alss, "io": ios,
-              "phase_s": phase_s, "failures": failures}
+              "autotune": tunes, "hybrid": hybrids, "cyclic": cyclics,
+              "drivers": drivers, "phase_s": phase_s, "failures": failures}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
@@ -2391,6 +2780,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     t0 = time.perf_counter()
+    if sys.argv[1:2] == ["--profile-check"] and torch.cuda.is_available():
+        rc = profile_check(int(sys.argv[2]))
+        sys.exit(rc)
     rc = main()
     print(f"[chip_smoke] {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     sys.exit(rc)

@@ -364,11 +364,16 @@ def test_cacqr_config_from_dict():
 
 
 def test_hybrid_path_needs_more_than_one_device():
-    grid = Grid.square(device="cpu")
+    """The hybrid path across devices needs a rect grid of more than one
+    device, which waits for the distributed grid (M9b); on the one-device
+    rect grid it runs (its parity: tests/test_torch_cacqr_hybrid.py)."""
+    with pytest.raises(NotImplementedError, match="M9b"):
+        Grid.rect(c=1, devices=["cpu", "cpu"])
+    grid = Grid.rect(c=1, device="cpu")
     a = torch.from_numpy(_operand(512, 128, 0))
-    for fn in (cacqr.gram_hybrid, cacqr.factor_hybrid):
-        with pytest.raises(NotImplementedError, match="M11"):
-            fn(grid, a)
+    assert cacqr.gram_hybrid(grid, a).shape == (128, 128)
+    q, r = cacqr.factor_hybrid(grid, a)
+    assert q.shape == a.shape and r.shape == (128, 128)
 
 
 def test_construct_and_operand_device():

@@ -130,6 +130,42 @@ def test_sharded_round_trip(tmp_path):
     assert cio.tree_map_distmatrix({"x": [a]})["x"][0] is a.data
 
 
+def _trees(r, rinv, step):
+    return {"tuple": (r, rinv),
+            "list": [r],
+            "nested": ([r, {"rinv": rinv}], (step,))}
+
+
+@pytest.mark.parametrize("kind", ["tuple", "list", "nested"])
+def test_sharded_round_trip_of_sequences(tmp_path, kind):
+    """A tuple, a list and a nested tree round-trip with their containers,
+    as any pytree does through the JAX package's orbax checkpoint; a bare
+    tensor is refused, as there."""
+    grid = Grid.square(device="cpu")
+    r = torch.triu(matrix.symmetric(grid, 64, 5).data)
+    rinv = torch.tril(matrix.rand(grid, 64, 64, 6).data)
+    step = torch.tensor(3, dtype=torch.int32)
+    path = str(tmp_path / "ckpt")
+    cio.save_sharded(path, _trees(r, rinv, step)[kind])
+    zero = _trees(torch.zeros_like(r), torch.zeros_like(rinv),
+                  torch.tensor(0, dtype=torch.int32))[kind]
+    out = cio.load_sharded(path, zero)
+    assert type(out) is type(zero)
+    want = _trees(r, rinv, step)[kind]
+    flat = lambda t: (sum((flat(v) for v in t.values()), [])  # noqa: E731
+                      if isinstance(t, dict) else
+                      sum((flat(v) for v in t), [])
+                      if isinstance(t, (list, tuple)) else [t])
+    assert [type(x) for x in flat(out)] == [type(x) for x in flat(want)]
+    for got, ref in zip(flat(out), flat(want)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    if kind == "nested":
+        assert isinstance(out[0], list) and isinstance(out[1], tuple)
+        assert isinstance(out[0][1], dict)
+    with pytest.raises(ValueError, match="bare"):
+        cio.save_sharded(str(tmp_path / "bare"), r)
+
+
 def test_interop_readers():
     """Configs from asdict of the JAX ones, nested fields included;
     SparseRatings from the JAX one's arrays; unknown fields raise."""
