@@ -9,7 +9,11 @@ QDWH spectral layer (`eigh`, `svd`, the `linalg` matrix functions), the
 applications (`apps.rsvd`, `apps.als`), the host-side storage (`io`,
 `native`), the one-device hybrid CholeskyQR and cyclic-workspace
 cholinv, the autotuner (`autotune.tune`), the drivers under `bench`, the
-examples under `examples` and the one-device step `entry.entry`; their
+examples under `examples` and the one-device step `entry.entry`. Across
+devices (one process a device, a `torch.distributed` world started by
+`parallel.launch` or torchrun) it covers the rank grids, the 2.5D SUMMA
+engines, the distributed cholinv with its four leaf placements, the
+validators and CholeskyQR2 1D / 3D / hybrid. The
 four TPU kernels (TRMM, SYRK, the fused Cholesky leaf, the LU
 panel leaf) are hand-written CUDA kernels for Hopper (sm_90a) under
 `csrc/`, built with nvcc at first use.

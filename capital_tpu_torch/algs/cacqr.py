@@ -1,5 +1,5 @@
 """CholeskyQR / CholeskyQR2 of a tall-skinny A (counterpart of
-capital_tpu/algs/cacqr.py), on one device.
+capital_tpu/algs/cacqr.py).
 
 One sweep:
 
@@ -14,7 +14,14 @@ one more TRMM (side='L'). `factor` sends n <= local_thresh to the 1D path
 (Gram, Cholesky and Q through the SUMMA layer and the recursive cholinv).
 The hybrid path (`factor_hybrid`) forms the Gram as the 1D path does and
 factors it with the recursive cholinv on the grid's square (z, x) view.
-On one device every reduction of the Gram policies is the identity.
+
+Across ranks (a grid on a mesh): the 1D and hybrid paths hold A's rows
+over every rank, P(('z', 'y', 'x'), None), and reduce the per-rank Gram
+(the SYRK kernel at 'tri') by the policy's collectives; every rank
+factors the replicated Gram and forms its rows of Q by a TRMM side='R'.
+The 3D path runs on DArrays of the (row, col) slice through the SUMMA
+engine and the distributed cholinv. On one device every reduction of the
+Gram policies is the identity.
 """
 
 from __future__ import annotations
@@ -25,12 +32,14 @@ import torch
 
 from capital_tpu_torch import tracing
 from capital_tpu_torch.algs import cholinv
-from capital_tpu_torch.grid import Grid
+from capital_tpu_torch.grid import ALL_AXES, AXIS_X, AXIS_Y, AXIS_Z, P, Grid
 from capital_tpu_torch.matrix import DistMatrix
 from capital_tpu_torch.ops import blas, lapack
 from capital_tpu_torch.ops.cuda_syrk import syrk_upper
 from capital_tpu_torch.ops.precision import dot as _pdot
-from capital_tpu_torch.parallel import summa
+from capital_tpu_torch.parallel import collectives as coll
+from capital_tpu_torch.parallel import darray, summa
+from capital_tpu_torch.parallel.darray import DArray
 
 
 @dataclass(frozen=True)
@@ -66,11 +75,26 @@ class Config:
 _POLICIES = ("allreduce", "two_stage", "packed")
 
 
-def _operand(grid: Grid, a) -> torch.Tensor:
+ROW1D = P(ALL_AXES, None)
+
+
+def _operand(grid: Grid, a):
+    """A's tensor (a DistMatrix's data) on the grid's device, or on a
+    mesh A as given (a DArray, or a tensor every rank holds whole)."""
     arr = a.data if isinstance(a, DistMatrix) else a
-    if arr.device != grid.device:
+    if grid.mesh is None and arr.device != grid.device:
         raise ValueError(f"operand on {arr.device}, grid on {grid.device}")
     return arr
+
+
+def _rows(grid: Grid, a) -> DArray:
+    """A as a DArray of rows over every rank (raises when the rows do not
+    split over them, as shard_map does)."""
+    return darray.reshard(darray.as_darray(a, grid.mesh), ROW1D)
+
+
+def _triu(x):
+    return x.triu() if isinstance(x, DArray) else torch.triu(x)
 
 
 # ---------------------------------------------------------------------------
@@ -136,30 +160,40 @@ def _unpack_tri(packed: torch.Tensor, n: int,
     return torch.where(tile[:, None] > tile[None, :], g.T, g)
 
 
-def gram_1d(grid: Grid, a: torch.Tensor, policy: str = "allreduce",
+def gram_1d(grid: Grid, a, policy: str = "allreduce",
             kernel: str = "dot") -> torch.Tensor:
-    """G = A^T A in A's dtype, replicated (on one device: local). 'packed'
-    round-trips G through the packed triangle when 128 | n, as the JAX
-    package's reduction does; otherwise it is 'allreduce'."""
+    """G = A^T A in A's dtype, replicated: each rank's Gram of its rows,
+    summed over every rank by the policy: 'allreduce' one psum,
+    'two_stage' a psum_scatter then an all_gather, 'packed' a psum of the
+    packed triangle when 128 | n (else 'allreduce'). On one device the
+    sum is the identity ('packed' still round-trips G through the
+    triangle)."""
     if policy not in _POLICIES:
         raise ValueError(f"unknown gram policy {policy!r}")
     n = a.shape[1]
     kernel = _resolve_gram_kernel(kernel, a.dtype, grid.platform, n)
-    g = _local_gram(a, kernel).to(a.dtype)
-    if policy == "packed" and n % _PACK_T == 0:
-        g = _unpack_tri(_pack_tri(g), n)
-    return g
+    mesh = grid.mesh
+    x = a if mesh is None else _rows(grid, a).local
+    g = _local_gram(x, kernel).to(a.dtype)
+    packed = policy == "packed" and n % _PACK_T == 0
+    if mesh is None:
+        return _unpack_tri(_pack_tri(g), n) if packed else g
+    if policy == "two_stage":
+        g = coll.psum_scatter(g, mesh, ALL_AXES, dim=0)
+        return coll.all_gather(g, mesh, ALL_AXES, dim=0)
+    if packed:
+        return _unpack_tri(coll.psum(_pack_tri(g), mesh, ALL_AXES), n)
+    return coll.psum(g, mesh, ALL_AXES)
 
 
 # ---------------------------------------------------------------------------
 # 1D path
 # ---------------------------------------------------------------------------
 
-def _sweep_1d(grid: Grid, a: torch.Tensor, cfg: Config,
-              overwrite_a: bool):
+def _sweep_1d(grid: Grid, a, cfg: Config, overwrite_a: bool):
     m, n = a.shape
     p = grid.num_devices
-    esz = a.element_size()
+    esz = darray.element_size(a)
     with tracing.phase("CQR::gram"):
         words = (_tri_pack_size(n)
                  if cfg.gram_policy == "packed" and n % _PACK_T == 0
@@ -172,15 +206,18 @@ def _sweep_1d(grid: Grid, a: torch.Tensor, cfg: Config,
         r, rinv = lapack.chol_inv(g, lower=False, method=cfg.base_method,
                                   platform=grid.platform)
     del g
+    # Q's rows are A's rows times triu(Rinv): each rank forms its own
+    # (on a mesh A is a DArray of rows, factor_1d's)
+    blk = a if grid.mesh is None else a.local
     with tracing.phase("CQR::formQ"):
         tracing.record("trmm_local", flops=2.0 * m * n * n / p)
         if cfg.formq_chunks > 1:
-            q = _formq_inplace(grid, a if overwrite_a else a.clone(), rinv,
-                               cfg.formq_chunks)
+            q = _formq_inplace(grid, blk if overwrite_a else blk.clone(),
+                               rinv, cfg.formq_chunks)
         else:
-            q = blas.trmm(rinv, a, side="R", uplo="U",
+            q = blas.trmm(rinv, blk, side="R", uplo="U",
                           platform=grid.platform)
-    return q, r
+    return (q if grid.mesh is None else a.with_local(q)), r
 
 
 def _formq_inplace(grid: Grid, a: torch.Tensor, rinv: torch.Tensor,
@@ -206,14 +243,17 @@ def _formq_inplace(grid: Grid, a: torch.Tensor, rinv: torch.Tensor,
 
 def factor_1d(grid: Grid, a, cfg: Config = Config(), *,
               overwrite_a: bool = False):
-    """CholeskyQR(2) in the 1D layout. Returns (Q, R): Q like A, R n x n
-    upper triangular (num_iter=1 returns the sweep's R as chol_inv gives
-    it, as the JAX package does).
+    """CholeskyQR(2) in the 1D layout. Returns (Q, R): Q like A (on a
+    mesh a DArray of rows over every rank), R n x n upper triangular,
+    replicated (num_iter=1 returns the sweep's R as chol_inv gives it, as
+    the JAX package does).
 
     A is left as it was unless overwrite_a is True and cfg.formq_chunks >
     1: then Q is written over A's storage (Q is A), which saves a copy of
     A when the caller no longer needs it."""
     a = _operand(grid, a)
+    if grid.mesh is not None:
+        a = _rows(grid, a)
     q, r1 = _sweep_1d(grid, a, cfg, overwrite_a)
     if cfg.num_iter == 1:
         return q, r1
@@ -228,8 +268,7 @@ def factor_1d(grid: Grid, a, cfg: Config = Config(), *,
 # local)
 # ---------------------------------------------------------------------------
 
-def _solve_2block(grid: Grid, a: torch.Tensor, r: torch.Tensor,
-                  rinv: torch.Tensor, n1: int, cfg: Config) -> torch.Tensor:
+def _solve_2block(grid: Grid, a, r, rinv, n1: int, cfg: Config):
     """Q from a partial inverse (only the diagonal blocks of Rinv) by a
     2-block back-substitution: Q1 = A1 R11inv; Q2 = (A2 - Q1 R12) R22inv."""
     m, n = a.shape
@@ -237,11 +276,23 @@ def _solve_2block(grid: Grid, a: torch.Tensor, r: torch.Tensor,
     impl = cfg.chol.summa_impl
     q1 = summa.trmm(grid, rinv, a, side="R", uplo="U", impl=impl,
                     a_window=(0, 0, n1, n1), b_window=(0, 0, m, n1))
-    t = summa.gemm(grid, q1, r[:n1, n1:], c=a[:, n1:], alpha=-1.0, beta=1.0,
-                   impl=impl)
+    if grid.mesh is None:
+        t = summa.gemm(grid, q1, r[:n1, n1:], c=a[:, n1:], alpha=-1.0,
+                       beta=1.0, impl=impl)
+    else:
+        spec = grid.slice_spec
+        a, r = grid.constrain(a, spec), grid.constrain(r, spec)
+        t = summa.gemm(grid, q1, darray.window(r, (0, n1, n1, n2)),
+                       c=darray.window(a, (0, n1, m, n2)), alpha=-1.0,
+                       beta=1.0, impl=impl)
     q2 = summa.trmm(grid, rinv, t, side="R", uplo="U", impl=impl,
                     a_window=(n1, n1, n2, n2))
-    return torch.cat([q1, q2], dim=1)
+    if grid.mesh is None:
+        return torch.cat([q1, q2], dim=1)
+    q = darray.zeros((m, n), spec, grid.mesh, q1.dtype, q1.device)
+    darray.set_window(q, (0, 0), q1)
+    darray.set_window(q, (0, n1), q2)
+    return q
 
 
 def _sweep_3d(grid: Grid, a: torch.Tensor, cfg: Config):
@@ -262,15 +313,18 @@ def _sweep_3d(grid: Grid, a: torch.Tensor, cfg: Config):
 
 def factor_3d(grid: Grid, a, cfg: Config = Config()):
     """CholeskyQR(2) with the Gram factored by the recursive cholinv.
-    Returns (Q, R), R upper triangular."""
+    Returns (Q, R), R upper triangular (on a mesh both DArrays of the
+    slice spec)."""
     a = _operand(grid, a)
+    if grid.mesh is not None:
+        a = grid.constrain(a, grid.slice_spec)
     q, r1 = _sweep_3d(grid, a, cfg)
     if cfg.num_iter == 1:
-        return q, torch.triu(r1)
+        return q, _triu(r1)
     q, r2 = _sweep_3d(grid, q, cfg)
-    r = summa.trmm(grid, r2, torch.triu(r1), side="L", uplo="U",
+    r = summa.trmm(grid, r2, _triu(r1), side="L", uplo="U",
                    impl=cfg.chol.summa_impl)
-    return q, torch.triu(r)
+    return q, _triu(r)
 
 
 # ---------------------------------------------------------------------------
@@ -278,13 +332,26 @@ def factor_3d(grid: Grid, a, cfg: Config = Config()):
 # ---------------------------------------------------------------------------
 
 def gram_hybrid(grid: Grid, a, policy: str = "two_stage",
-                kernel: str = "auto") -> torch.Tensor:
+                kernel: str = "auto"):
     """G = A^T A in A's dtype, laid out on the rect grid's square (z, x)
-    view. Across devices 'two_stage' reduce-scatters over x, then z, and
-    sums over the long y axis; 'allreduce' and 'packed' sum over the whole
-    mesh (the latter as the packed tile triangle). On one device every
+    view: a DArray of P('z', 'x') on a mesh. 'two_stage' reduce-scatters
+    each rank's Gram over x (columns), then z (rows), and sums over the
+    long y axis, so the stage that crosses hosts moves 1/c^2 of G;
+    'allreduce' and 'packed' sum over the whole mesh (the latter as the
+    packed tile triangle) and keep the (z, x) block. On one device every
     reduction is the identity, so each policy is gram_1d's."""
-    return gram_1d(grid, a, policy, kernel=kernel)
+    if grid.mesh is None or policy != "two_stage":
+        g = gram_1d(grid, a, policy, kernel=kernel)
+        return g if grid.mesh is None else grid.constrain(
+            g, P(AXIS_Z, AXIS_X))
+    n = a.shape[1]
+    kernel = _resolve_gram_kernel(kernel, a.dtype, grid.platform, n)
+    mesh = grid.mesh
+    g = _local_gram(_rows(grid, a).local, kernel).to(a.dtype)
+    g = coll.psum_scatter(g, mesh, AXIS_X, dim=1)
+    g = coll.psum_scatter(g, mesh, AXIS_Z, dim=0)
+    g = coll.psum(g, mesh, AXIS_Y)
+    return DArray(g, (n, n), P(AXIS_Z, AXIS_X), mesh)
 
 
 def _sweep_hybrid(grid: Grid, a: torch.Tensor, cfg: Config):
@@ -294,7 +361,7 @@ def _sweep_hybrid(grid: Grid, a: torch.Tensor, cfg: Config):
     m, n = a.shape
     with tracing.phase("CQR::gram"):
         p = grid.num_devices
-        esz = a.element_size()
+        esz = darray.element_size(a)
         c = grid.c
         if cfg.gram_policy == "two_stage":
             comm = (tracing.psum_bytes(n * n * esz, c) / 2        # scatter x
@@ -313,18 +380,27 @@ def _sweep_hybrid(grid: Grid, a: torch.Tensor, cfg: Config):
         r, rinv = cholinv.factor(sq, g, cfg.chol)
     del g
     with tracing.phase("CQR::formQ"):
-        q = blas.trmm(rinv, a, side="R", uplo="U", platform=grid.platform)
-    return q, r
+        # every rank its rows of Q against the replicated inverse
+        rinv = darray.whole(rinv)
+        if grid.mesh is None:
+            return blas.trmm(rinv, a, side="R", uplo="U",
+                             platform=grid.platform), r
+        x = _rows(grid, a)
+        q = blas.trmm(rinv, x.local, side="R", uplo="U",
+                      platform=grid.platform)
+    return x.with_local(q), darray.whole(r)
 
 
 def factor_hybrid(grid: Grid, a, cfg: Config = Config()):
     """CholeskyQR(2) with rows over a rect grid (c == d2) and the Gram
     factored on its (z, x) square view. Returns (Q, R), R upper
-    triangular. A is left as it was."""
-    a = _operand(grid, a)
+    triangular and replicated. A is left as it was."""
     if grid.c != grid.d2:
         raise ValueError(
             f"hybrid path needs a rect grid with c == d2, got {grid.shape}")
+    a = _operand(grid, a)
+    if grid.mesh is not None:
+        a = _rows(grid, a)
     q, r1 = _sweep_hybrid(grid, a, cfg)
     if cfg.num_iter == 1:
         return q, torch.triu(r1)
@@ -340,46 +416,62 @@ def factor_hybrid(grid: Grid, a, cfg: Config = Config()):
 
 def factor(grid: Grid, a, cfg: Config = Config(), *,
            overwrite_a: bool = False):
-    """The 1D path for n <= cfg.local_thresh, else the 3D path. (The JAX
-    package's third branch sends a rect grid with 1 < c == d2 < d1 to
-    the hybrid path; the one-device grid is never one.) overwrite_a as
-    for factor_1d; the 3D path never writes over A."""
+    """The 1D path for n <= cfg.local_thresh; else the hybrid path on a
+    rect grid with 1 < c == d2 < d1; else the 3D path. overwrite_a as
+    for factor_1d; the other paths never write over A."""
     arr = a.data if isinstance(a, DistMatrix) else a
     if arr.shape[1] <= cfg.local_thresh:
         return factor_1d(grid, arr, cfg, overwrite_a=overwrite_a)
+    if not grid.is_square and grid.c == grid.d2 and grid.c > 1:
+        return factor_hybrid(grid, arr, cfg)
     return factor_3d(grid, arr, cfg)
 
 
-def construct_q(q: torch.Tensor, shape=None) -> torch.Tensor:
-    """Dense Q, generator padding cropped."""
+def construct_q(q, shape=None) -> torch.Tensor:
+    """Dense Q, generator padding cropped (a DArray gathered whole)."""
+    q = darray.to_global(q)
     if shape is not None:
         q = q[: shape[0], : shape[1]]
     return q
 
 
-def construct_r(r: torch.Tensor, shape=None) -> torch.Tensor:
-    """Dense masked R."""
-    out = torch.triu(r)
+def construct_r(r, shape=None) -> torch.Tensor:
+    """Dense masked R (a DArray gathered whole)."""
+    out = torch.triu(darray.to_global(r))
     if shape is not None:
         out = out[: shape[0], : shape[1]]
     return out
 
 
-def apply_q(grid: Grid, q: torch.Tensor, x: torch.Tensor, *,
-            trans: bool = False, cfg: Config = Config(),
-            layout: str = "auto", out_dtype=None) -> torch.Tensor:
-    """Y = Q X, or Q^T X with trans. layout '1d' (row-sharded Q; 'auto'
-    on the one-device grid, where every tensor is row-sharded over all
-    devices) or '2d' (through the SUMMA layer).
+def is_row_sharded(x) -> bool:
+    """True for a DArray of rows over every rank (the 1D layout), and
+    for any tensor on one device, where every tensor is."""
+    if isinstance(x, DArray):
+        return tuple(x.spec) == tuple(ROW1D)
+    return True
+
+
+def apply_q(grid: Grid, q, x, *, trans: bool = False, cfg: Config = Config(),
+            layout: str = "auto", out_dtype=None):
+    """Y = Q X, or Q^T X with trans. layout '1d' (Q's rows over every
+    rank: a local product, Q^T X summed over the ranks), '2d' (through
+    the SUMMA layer) or 'auto' (from Q's layout).
 
     out_dtype ('1d' with trans): dtype of the skinny projection, default
     Q's; f32 with bf16 operands keeps it at full accumulation precision."""
     if layout == "auto":
-        layout = "1d"
+        layout = "1d" if is_row_sharded(q) else "2d"
     if layout == "1d":
+        if grid.mesh is None:
+            if not trans:
+                return blas.gemm(q, x)
+            return _pdot(q.T, x).to(out_dtype or q.dtype)
+        qr = _rows(grid, q)
         if not trans:
-            return blas.gemm(q, x)
-        return _pdot(q.T, x).to(out_dtype or q.dtype)
+            return qr.with_local(blas.gemm(qr.local, darray.whole(x)))
+        part = _pdot(qr.local.T, _rows(grid, x).local).to(
+            out_dtype or q.dtype)
+        return coll.psum(part, grid.mesh, ALL_AXES)
     impl = cfg.chol.summa_impl
     qq = summa.transpose(grid, q, impl=impl) if trans else q
     return summa.gemm(grid, qq, x, impl=impl)

@@ -6,9 +6,9 @@ On one device the tree has one leaf: A = Q R by Householder QR
 XLA's stock QR), its updates at 'highest'. R's diagonal is made
 nonnegative (the LAPACK-style canonical form), applied as a diagonal flip
 on both factors. The two-level tree (local QRs, the gathered R stack
-factored again, Q back-propagated) needs more than one device and raises
-until the distributed substrate is ported (ROADMAP queue M, items M9 and
-M10).
+factored again, Q back-propagated) runs on a grid of more than one rank
+and is not ported yet: it raises (ROADMAP queue M, the first item after
+the world grids of M9 and M10).
 """
 
 from __future__ import annotations
@@ -71,5 +71,5 @@ def _kern_single(arr: torch.Tensor, cfg: Config):
 
 def _kern_tree(grid: Grid, arr, cfg: Config, ndev: int):
     raise NotImplementedError(
-        "the TSQR tree needs more than one device; the port runs on one "
-        "device until ROADMAP queue M, items M9 and M10")
+        "the TSQR tree across ranks is not ported yet (ROADMAP queue M: "
+        "the tree on the world grids of items M9 and M10)")

@@ -23,8 +23,9 @@ lookahead for LU; base_n and sign_l0 for eigh. The one-device spaces are
 the JAX package's own one-device spaces, except that `gram_kernel` sweeps
 ['dot', 'tri'] on 'gpu' as the JAX package does on 'tpu' (the port's
 'auto' sends an f32 Gram to the SYRK kernel there, as the JAX package's
-does on a TPU). Grids of more than one device raise NotImplementedError
-(ROADMAP queue M, M9b/M10).
+does on a TPU). Grid shapes of more than one device raise
+NotImplementedError: the tuner's sweep over world grids waits (ROADMAP
+queue M).
 """
 
 from __future__ import annotations
@@ -42,9 +43,10 @@ from capital_tpu_torch import tracing
 from capital_tpu_torch.grid import Grid, default_device
 from capital_tpu_torch.ops.precision import default_matmul_precision
 
-_NOT_PORTED = ("the virtual multi-device CPU mesh and grids of more than "
-               "one device wait for the distributed substrate (ROADMAP "
-               "queue M, items M9b and M10)")
+_NOT_PORTED = ("the tuner's grid shapes over more than one device and its "
+               "multi-device CPU mesh are not ported: the world grids of "
+               "M9b and M10 exist, the tuner's sweep over them waits "
+               "(ROADMAP queue M)")
 
 
 @dataclass
@@ -290,7 +292,7 @@ def _devices(devices) -> list:
 def grid_candidates(devices=None):
     """Feasible grid shapes for the device count as (kind, c, d) triples:
     (square, 1, 1) on one device. More devices raise NotImplementedError
-    (the JAX package's square and rect sub-grid shapes wait for M9b)."""
+    (the JAX package's square and rect sub-grid shapes wait)."""
     p = len(_devices(devices))
     if p > 1:
         raise NotImplementedError(f"grid shapes over {p} devices: "
@@ -439,6 +441,8 @@ def main(argv=None):
         parts = gspec.split(":")
         if parts[0] == "square":
             c, d = int(parts[1]), int(parts[2])
+            if c * d * d > 1:
+                raise NotImplementedError(f"--grid {gspec}: {_NOT_PORTED}")
             grid = Grid.square(c=c, d=d, devices=devs[: c * d * d])
         elif parts[0] == "rect":
             if int(parts[1]) > 1:

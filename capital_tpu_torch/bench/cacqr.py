@@ -10,7 +10,12 @@ last seed, from which A is regenerated for the residual. GFLOP/s counts
 the useful flops, variant * (4mn^2 + 2n^3/3) (Gram, Q and Cholesky of
 each sweep), over the best timed call. `vs_library` is the time of
 torch.linalg.qr(A, mode='reduced') on that same operand over the port's
-best time (null for bf16, which torch.linalg.qr does not take).
+best time (null for bf16, which torch.linalg.qr does not take, and
+across ranks). Under torchrun the grid is the rect grid of --c over
+every rank (A's rows over all of them):
+
+    torchrun --nproc-per-node=8 -m capital_tpu_torch.bench.cacqr --c 2 \
+        --path hybrid --gram-policy two_stage
 """
 
 from __future__ import annotations
@@ -22,8 +27,7 @@ import torch
 from capital_tpu_torch import matrix, tracing, validate
 from capital_tpu_torch.algs import cacqr, cholinv
 from capital_tpu_torch.bench.common import (apply_precision, base_parser,
-                                            device_of, report, time_call)
-from capital_tpu_torch.grid import Grid
+                                            report, time_call, world_grid)
 
 
 def main(argv=None):
@@ -54,8 +58,7 @@ def main(argv=None):
 
 
 def _run(args):
-    dev = device_of(args)
-    grid = Grid.square(c=args.c, d=1, device=dev, layout=args.layout)
+    grid, dev = world_grid(args, "rect")
     dtype = getattr(torch, args.dtype)
     cfg = cacqr.Config(num_iter=args.variant, gram_policy=args.gram_policy,
                        base_method=args.base_method,
@@ -68,7 +71,7 @@ def _run(args):
         args.path, functools.partial(cacqr.factor_1d, overwrite_a=True))
     layout = "2d" if args.path == "3d" else "1d"
 
-    def regen(seed: int) -> torch.Tensor:
+    def regen(seed: int):
         return matrix.tall_skinny(grid, args.m, args.n, seed,
                                   dtype=dtype).data
 
@@ -100,7 +103,7 @@ def _run(args):
         extra["residual"] = float(validate.qr_residual(grid, a, q, r,
                                                        layout=layout))
     del q, r
-    if dtype == torch.float32:
+    if dtype == torch.float32 and grid.mesh is None:
         time_call(lambda: torch.linalg.qr(a[:4096], mode="reduced"), dev)
         lib_secs, out = time_call(lambda: torch.linalg.qr(a, mode="reduced"),
                                   dev)

@@ -4,6 +4,11 @@ report, plus the analytic cost table.
 
 On a GPU a call is timed with CUDA events around it, after a
 torch.cuda.synchronize(); on the CPU with the host clock.
+
+Under torchrun (`torchrun --nproc-per-node=N -m capital_tpu_torch.bench.
+cholinv --c ...`) the benches build their grid on the world the
+environment describes (`world_grid`), one rank a device, and only rank 0
+prints the report.
 """
 
 from __future__ import annotations
@@ -51,6 +56,34 @@ def device_of(args) -> torch.device:
     return torch.device("cpu")
 
 
+def world_grid(args, kind: str = "square"):
+    """(grid, device) of a bench: on the world torchrun describes (NCCL
+    ranks on the cards, gloo ranks with --device cpu), the square grid
+    (c, d, d) over every rank or the rect grid of c, at --layout; with no
+    world, the one-device grid on device_of(args)."""
+    from capital_tpu_torch.grid import Grid
+    from capital_tpu_torch.parallel import launch
+
+    if launch.init_from_env(args.device):
+        import atexit
+
+        import torch.distributed as dist
+
+        atexit.register(dist.destroy_process_group)
+        make = Grid.rect if kind == "rect" else Grid.square
+        grid = make(c=args.c, layout=args.layout)
+        return grid, grid.device
+    dev = device_of(args)
+    return Grid.square(c=args.c, d=1, device=dev, layout=args.layout), dev
+
+
+def is_root() -> bool:
+    """False on every rank of a world but rank 0."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def force(device: torch.device) -> None:
     """Wait for the device to finish the queued work."""
     if device.type == "cuda":
@@ -61,9 +94,18 @@ def _perturb(args, i: int):
     """Fresh inputs for timed call i: every floating tensor of the tuple
     scaled by 1 + (i + 1) * 1e-7 (a new tensor; the caller's are kept),
     other entries as they are."""
+    from capital_tpu_torch.parallel.darray import DArray
+
     s = 1.0 + (i + 1) * 1e-7
-    return tuple(x * s if isinstance(x, torch.Tensor) and x.is_floating_point()
-                 else x for x in args)
+
+    def fresh(x):
+        if isinstance(x, DArray):
+            return x.with_local(fresh(x.local))
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            return x * s
+        return x
+
+    return tuple(fresh(x) for x in args)
 
 
 def apply_precision(args):
@@ -111,6 +153,8 @@ def report(name: str, *, secs: float, flops: float | None = None,
     if flops is not None:
         rec["gflops"] = round(flops / secs / 1e9, 2)
     rec.update(extra or {})
+    if not is_root():
+        return rec
     if as_json:
         print(json.dumps(rec))
     else:

@@ -85,8 +85,8 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.cpu or (args.devices or 1) > 1:
         raise NotImplementedError(
-            "the multi-device scaling sweep (--cpu, --devices > 1) waits "
-            "for the distributed substrate (ROADMAP queue M, item M23b)")
+            "the multi-device scaling sweep (--cpu, --devices > 1) is not "
+            "ported yet (ROADMAP queue M, item M23b)")
 
     rows = []
     for c, d in [(1, 1)]:

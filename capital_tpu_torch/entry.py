@@ -1,8 +1,8 @@
 """The one-device step (counterpart of __graft_entry__.entry): a cholinv
 factor of an n = 512 SPD operand, base method 'auto', so the fused
 Cholesky leaf kernel on the card. The multi-device dry run
-(__graft_entry__.dryrun_multichip) waits for the distributed substrate
-(ROADMAP queue M, item M23b).
+(__graft_entry__.dryrun_multichip) is not ported yet (ROADMAP queue M,
+item M23b).
 
     fn, args = entry()          # cuda:0; entry('cpu') on the CPU
     r, rinv = fn(*args)

@@ -6,6 +6,10 @@ as plain data, so this module imports nothing of the JAX package: a
 caller hands over `np.asarray(dist_matrix.data)` (or any array, through
 torch.from_numpy), `dataclasses.asdict(cfg)` and, for sparse ALS, the
 four arrays of a SparseRatings.
+
+Across ranks a global numpy array becomes the port's distributed array
+with `dist_from_numpy` (each rank copies only its own block to its
+device), and `to_numpy` gathers one back.
 """
 
 from __future__ import annotations
@@ -18,8 +22,9 @@ import torch
 from capital_tpu_torch.algs import (cacqr, cholinv, eigh, newton, polar,
                                     svd, tsqr)
 from capital_tpu_torch.apps import als, rsvd
-from capital_tpu_torch.grid import default_device
+from capital_tpu_torch.grid import P, Grid, default_device
 from capital_tpu_torch.matrix import DistMatrix, Structure
+from capital_tpu_torch.parallel import darray
 
 
 def dist_matrix_from_numpy(data, shape, structure_value="rect",
@@ -31,6 +36,30 @@ def dist_matrix_from_numpy(data, shape, structure_value="rect",
     return DistMatrix(t, tuple(int(s) for s in shape),
                       Structure(getattr(structure_value, "value",
                                         structure_value)))
+
+
+def dist_from_numpy(data, grid: Grid, spec=None):
+    """The global numpy array `data` on the grid: on a mesh a DArray of
+    `spec` (default the grid's slice spec), each rank copying its own
+    block to its device; on the one-device grid a tensor on its device."""
+    arr = np.asarray(data)
+    if grid.mesh is None:
+        return torch.from_numpy(np.array(arr, copy=True)).to(grid.device)
+    spec = grid.slice_spec if spec is None else P(*spec)
+    probe = darray.DArray(torch.empty(0), arr.shape, spec, grid.mesh)
+    idx = tuple(slice(s, s + n) for s, n in
+                (probe.block(i) for i in range(arr.ndim)))
+    local = torch.from_numpy(np.array(arr[idx], copy=True))
+    return darray.DArray(local.to(grid.device), arr.shape, probe.spec,
+                         grid.mesh)
+
+
+def to_numpy(x) -> np.ndarray:
+    """A DArray gathered whole (a collective: every rank of its mesh
+    calls it), a DistMatrix's data, or a tensor, as a numpy array."""
+    if isinstance(x, DistMatrix):
+        x = x.data
+    return darray.to_global(x).detach().cpu().numpy()
 
 
 def _check_fields(cls, d: dict) -> None:

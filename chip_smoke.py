@@ -152,6 +152,21 @@
    (tile_rel_err below 1e-5), bench.scaling --alg cholinv, entry()'s step
    (residuals below 1e-5) and the four examples, each held to its own
    bounds and launching its kernels.
+   [mesh] the multi-device substrate over NCCL, one rank a card
+   (parallel/launch.py; one rank on a one-card machine), grids from the
+   world's constructors: cholinv.factor at n = 32768 'high', base case
+   512, with each base_policy and summa_impl, bitwise equal to the
+   one-device factor of the same operand (on one rank) and 189 / 63 / 64
+   TRMM / SYRK / leaf launches each, residuals below 1e-5; cacqr.factor_1d
+   at 2^20 x 1024 'highest' on the rect grid with the SYRK Gram and each
+   Gram policy, bitwise equal to the one-device factor, 3 / 2 / 2
+   launches, errors by the kernels and in f64 below 1e-5; factor_3d at
+   2^18 x 1024 and factor_hybrid at 2^20 x 1024, 'highest', within 1e-5
+   of the one-device factor; summa.gemm 'shard_map' (num_chunks 4,
+   collect_chunks 2) and 'ring' at 8192^3 'highest' within 1e-5 of a
+   plain product. Eight ranks on the one card (the 2 x 2 x 2 schedule)
+   are not run: the installed gloo backend refuses batch_isend_irecv of
+   CUDA tensors (MULTI_RANK_ON_CARD, bench/mesh_probe.py).
    Every main path zeroes the launch counters just before it and reads
    them just after: each kernel of the path must have run the number of
    times its call tree gives (every LU leaf on the resident route), and
@@ -177,8 +192,9 @@ take their launches from the [eigh] run, and the leaf's n = 512 row
 carries that run's leaf launches as `launches_eigh`; the rows "rsvd",
 "R:rsvd", "rsvd_bf16" and "R:rsvd_bf16" from the first call of their
 rSVD path. Every row also carries `launches_autotune`, `launches_hybrid`,
-`launches_cyclic` and `launches_drivers`: its kernel's (for TRMM, its
-case's) launches in those phases, at every precision.
+`launches_cyclic`, `launches_drivers` and `launches_mesh` (rank 0's):
+its kernel's (for TRMM, its case's) launches in those phases, at every
+precision.
 """
 
 from __future__ import annotations
@@ -273,6 +289,21 @@ AUTOTUNE_ALGS = {"cholinv": ("trmm_upper", "syrk_upper", "chol_inv"),
 HYBRID_SHAPE = (1 << 20, 1024)
 CYCLIC_RUN = (8192, 512)
 SUMMA_GEMM_TOL = 1e-5
+# [mesh]: the multi-device substrate over NCCL, one rank a card. The
+# 2 x 2 x 2 schedule as eight ranks on one card needs a backend that takes
+# every collective the engine issues on CUDA tensors; the installed gloo
+# takes all_gather_into_tensor, all_reduce and reduce_scatter_tensor but
+# fails batch_isend_irecv ("gloo/transport/tcp/pair.cc:339] writev ...:
+# Bad address", torch 2.11.0+cu128; python -m
+# capital_tpu_torch.bench.mesh_probe --ranks 8 --device cuda:0 --backend
+# gloo), so that part is not run.
+MULTI_RANK_ON_CARD = False
+MESH_CHOL = (32768, "high")
+MESH_QR = (1 << 20, 1024, "highest")
+MESH_3D = (1 << 18, 1024, "highest")
+MESH_GEMM = 8192
+MESH_POLICIES = ("replicated", "layer", "gather", "gather_overlap")
+MESH_IMPLS = ("shard_map", "ring", "gspmd")
 # the examples' kernels: each must launch at least once in its run
 EXAMPLE_KERNELS = {
     "gp_regression": ("trmm_upper", "syrk_upper"),
@@ -2551,6 +2582,197 @@ def drivers_phase(failures: list) -> dict:
     return out
 
 
+def mesh_rank() -> dict:
+    """One rank of the [mesh] world (see the module docstring): every
+    call on the world's grids, each against the one-device call of the
+    same operand on this rank's card. Returns the rank's records and its
+    failures."""
+    import torch.distributed as dist
+
+    from capital_tpu_torch import Grid, matrix, validate
+    from capital_tpu_torch.algs import cacqr, cholinv
+    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops.precision import default_matmul_precision
+    from capital_tpu_torch.ops.precision import dot as pdot
+    from capital_tpu_torch.parallel import darray, summa
+
+    from capital_tpu_torch.parallel.launch import world_device
+
+    world, fails = dist.get_world_size(), []
+    one = world == 1  # then every result must equal the one-device one
+    dev = world_device()
+    local = Grid.square(device=dev)
+    out = {"rank": dist.get_rank(), "world": world,
+           "backend": dist.get_backend(), "launches": zero_counts()}
+
+    def same(what, got, want, tol=TOL, bitwise_on_one=False):
+        """got against want: within tol (relative Frobenius), and bit for
+        bit on one rank when bitwise_on_one."""
+        got, want = darray.to_global(got), darray.to_global(want)
+        rel, _ = compare(got, want)
+        bitwise = bool(torch.equal(got, want))
+        if not rel < tol or (one and bitwise_on_one and not bitwise):
+            fails.append(f"mesh {what}: rel {rel}, bitwise {bitwise}")
+        return {"rel": rel, "bitwise": bitwise}
+
+    def counted(what, fn, want):
+        reset_counters()
+        ms, res = once_ms(fn)
+        got = counters()
+        add_counts(out["launches"], got)
+        if one and got != want:
+            fails.append(f"mesh {what}: launch counts {got} != {want}")
+        return ms, res
+
+    # cholinv at the headline cell, each placement and engine
+    n, level = MESH_CHOL
+    sq = Grid.square(c=1)
+    a = matrix.symmetric(sq, n, 0, align=128)
+    a_whole = darray.whole(a.data)
+    bc = cholinv.Config().base_dim(sq, n)
+    want = zero_counts()
+    add_cholinv(want, n, bc)
+    rows = {}
+    with default_matmul_precision(level):
+        ref_ms, (rr, rri) = once_ms(lambda: cholinv.factor(
+            local, a_whole, cholinv.Config()))
+        for pol in MESH_POLICIES:
+            for impl in MESH_IMPLS:
+                cfg = cholinv.Config(base_policy=pol, summa_impl=impl)
+                ms, (r, ri) = counted(f"cholinv {pol} {impl}",
+                                      lambda: cholinv.factor(sq, a, cfg),
+                                      want)
+                rows[f"{pol} {impl}"] = {"ms": ms, **same(
+                    f"cholinv {pol} {impl} R", r, rr, bitwise_on_one=True)}
+                same(f"cholinv {pol} {impl} Rinv", ri, rri,
+                     bitwise_on_one=True)
+                del r, ri
+    res = float(validate.cholesky_residual(local, a_whole, rr, chunks=8,
+                                           masked=True))
+    inv = float(validate.inverse_residual(local, rr, rri, chunks=8,
+                                          masked=True))
+    if not (res < 1e-5 and inv < 1e-5):
+        fails.append(f"mesh cholinv: residuals {res} / {inv}")
+    del rr, rri, a, a_whole
+    torch.cuda.empty_cache()
+    out["cholinv"] = {"n": n, "precision": level, "grid": sq.shape,
+                      "one_device_ms": ref_ms, "runs": rows,
+                      "residual": res, "inv_residual": inv}
+
+    # CholeskyQR2, 1D, the SYRK Gram, each policy
+    m, nq, level = MESH_QR
+    rect = Grid.rect(c=1)
+    a = matrix.tall_skinny(rect, m, nq, 0)
+    a_whole = darray.whole(a.data)
+    want = zero_counts()
+    want.update(syrk_upper=2, trmm_upper=3, chol_inv=2)
+    want["trmm_upper_by_case"].update(R=2, L=1)
+    rows = {}
+    with default_matmul_precision(level):
+        ref_ms, (rq, rr) = once_ms(lambda: cacqr.factor_1d(
+            local, a_whole, cacqr.Config(gram_kernel="tri")))
+        for pol in ("allreduce", "two_stage", "packed"):
+            cfg = cacqr.Config(gram_kernel="tri", gram_policy=pol)
+            ms, (q, r) = counted(f"factor_1d {pol}",
+                                 lambda: cacqr.factor_1d(rect, a, cfg), want)
+            del q, r  # a second call: the first starts NCCL's collectives
+            ms2, (q, r) = once_ms(lambda: cacqr.factor_1d(rect, a, cfg))
+            rows[pol] = {"ms": [ms, ms2], **same(f"factor_1d {pol} Q", q, rq,
+                                                 bitwise_on_one=True)}
+            same(f"factor_1d {pol} R", r, rr, bitwise_on_one=True)
+            if pol == "allreduce":
+                orth = float(validate.qr_orthogonality(rect, q))
+                resq = float(validate.qr_residual(rect, a.data, q, r))
+            del q, r
+    orth64, res64 = qr_errors_f64(a_whole, rq, rr)
+    for what, x in (("orthogonality", orth), ("residual", resq),
+                    ("orthogonality_f64", orth64), ("residual_f64", res64)):
+        if not x < QR_TOL:
+            fails.append(f"mesh factor_1d: {what} {x}")
+    out["factor_1d"] = {"m": m, "n": nq, "precision": level,
+                        "grid": rect.shape, "one_device_ms": ref_ms,
+                        "runs": rows, "orthogonality": orth,
+                        "residual": resq, "orthogonality_f64": orth64,
+                        "residual_f64": res64}
+
+    # factor_hybrid on the same operand, factor_3d at MESH_3D
+    with default_matmul_precision(level):
+        cfg = cacqr.Config(gram_policy="two_stage")
+        ref_ms, (hq, hr) = once_ms(lambda: cacqr.factor_hybrid(
+            local, a_whole, cfg))
+        want = zero_counts()
+        zx = rect.view(z=None, y="z", x="x")  # the Gram's square view
+        add_cholinv(want, nq, cacqr.Config().chol.base_dim(zx, nq), 2)
+        want["syrk_upper"] += 2
+        add_trmm(want, "R", 2)
+        add_trmm(want, "L", 1)
+        ms, (q, r) = counted("factor_hybrid",
+                             lambda: cacqr.factor_hybrid(rect, a, cfg), want)
+        out["factor_hybrid"] = {"m": m, "n": nq, "ms": ms,
+                                "one_device_ms": ref_ms,
+                                **same("factor_hybrid Q", q, hq)}
+        same("factor_hybrid R", r, hr)
+        del q, r, hq, hr, a, a_whole, rq, rr
+        torch.cuda.empty_cache()
+        m3, n3, _ = MESH_3D
+        b = matrix.tall_skinny(sq, m3, n3, 1)
+        b_whole = darray.whole(b.data)
+        ref_ms, (tq, tr) = once_ms(lambda: cacqr.factor_3d(
+            local, b_whole, cacqr.Config()))
+        want = zero_counts()
+        add_cholinv(want, n3, cacqr.Config().chol.base_dim(sq, n3), 2)
+        want["syrk_upper"] += 2
+        add_trmm(want, "R", 2)
+        add_trmm(want, "L", 1)
+        ms, (q, r) = counted("factor_3d",
+                             lambda: cacqr.factor_3d(sq, b, cacqr.Config()),
+                             want)
+        out["factor_3d"] = {"m": m3, "n": n3, "ms": ms,
+                            "one_device_ms": ref_ms,
+                            **same("factor_3d Q", q, tq)}
+        same("factor_3d R", r, tr)
+        del q, r, tq, tr, b, b_whole
+        torch.cuda.empty_cache()
+
+    # the SUMMA engines against a plain product
+    ng = MESH_GEMM
+    x = matrix.rand(sq, ng, ng, 2).data
+    y = matrix.rand(sq, ng, ng, 3).data
+    gemms = {}
+    with default_matmul_precision("highest"):
+        plain = pdot(darray.whole(x), darray.whole(y))
+        for name, kw in (("shard_map", dict(impl="shard_map", num_chunks=4,
+                                            collect_chunks=2)),
+                         ("ring", dict(impl="ring"))):
+            ms, c = counted(f"gemm {name}",
+                            lambda: summa.gemm(sq, x, y, **kw), zero_counts())
+            del c
+            ms2, c = once_ms(lambda: summa.gemm(sq, x, y, **kw))
+            gemms[name] = {"ms": [ms, ms2], **same(f"gemm {name}", c, plain,
+                                                   SUMMA_GEMM_TOL)}
+            del c
+    out["gemm"] = {"n": ng, "precision": "highest", "runs": gemms}
+    out["failures"] = fails
+    return out
+
+
+def mesh_phase(failures: list) -> dict:
+    """[mesh]: mesh_rank on one NCCL rank a card."""
+    from capital_tpu_torch.parallel import launch
+
+    ranks = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    outs = launch.launch(mesh_rank, ranks, device="cuda", timeout=900)
+    secs = time.perf_counter() - t0
+    for o in outs:
+        failures.extend(o.pop("failures"))
+    rec = dict(outs[0])
+    rec.update(ranks=ranks, seconds=secs, card=smi(),
+               multi_rank_on_card=MULTI_RANK_ON_CARD)
+    print(f"[mesh] {json.dumps(rec)}", flush=True)
+    return rec
+
+
 def phase_launches(row: dict, phases: dict) -> dict:
     """{phase: launches of the row's kernel (for TRMM, of its case) in
     that phase's runs}, for the phases whose records carry `launches`."""
@@ -2741,8 +2963,10 @@ def main() -> int:
     hybrids = timed("hybrid", lambda: [hybrid_phase(failures)])
     cyclics = timed("cyclic", lambda: [cyclic_phase(failures)])
     drivers = timed("drivers", lambda: drivers_phase(failures))
+    meshes = timed("mesh", lambda: [mesh_phase(failures)])
     new_phases = {"hybrid": hybrids[0]["launches"],
-                    "cyclic": cyclics[0]["launches"]}
+                  "cyclic": cyclics[0]["launches"],
+                  "mesh": meshes[0]["launches"]}
     for key, part in (("autotune", tunes), ("drivers", drivers)):
         new_phases[key] = zero_counts()
         for rec in part.values():
@@ -2762,7 +2986,8 @@ def main() -> int:
               "svd": svds, "eigh_partial": partials, "spectral": spectrals,
               "rsvd": rsvds, "pca": pcas, "als": alss, "io": ios,
               "autotune": tunes, "hybrid": hybrids, "cyclic": cyclics,
-              "drivers": drivers, "phase_s": phase_s, "failures": failures}
+              "drivers": drivers, "mesh": meshes, "phase_s": phase_s,
+              "failures": failures}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)

@@ -34,6 +34,7 @@ from capital_tpu.algs import cacqr as jcacqr
 from capital_tpu.algs import cholinv as jcholinv
 from capital_tpu.grid import Grid as JGrid
 from capital_tpu.ops import pallas_chol, pallas_syrk, pallas_trmm
+import torch_mesh_ranks
 from capital_tpu_torch import Grid, interop, validate
 from capital_tpu_torch.algs import cacqr
 from capital_tpu_torch.ops import counters, reset_counters
@@ -365,10 +366,17 @@ def test_cacqr_config_from_dict():
 
 def test_hybrid_path_needs_more_than_one_device():
     """The hybrid path across devices needs a rect grid of more than one
-    device, which waits for the distributed grid (M9b); on the one-device
-    rect grid it runs (its parity: tests/test_torch_cacqr_hybrid.py)."""
-    with pytest.raises(NotImplementedError, match="M9b"):
+    device: outside a world the port refuses to build one; inside a
+    2-rank world (tests/torch_mesh_ranks.py) it builds (1, 2, 1) and the
+    hybrid path runs on it, Q's rows over both ranks, Q R = A to 1e-5.
+    On the one-device rect grid it runs as before (its parity:
+    tests/test_torch_cacqr_hybrid.py)."""
+    with pytest.raises(RuntimeError, match="start a world"):
         Grid.rect(c=1, devices=["cpu", "cpu"])
+    got = torch_mesh_ranks.world(torch_mesh_ranks.hybrid_world, ranks=2)
+    assert got["grid"] == (1, 2, 1) and got["gram"] == (128, 128)
+    assert got["q"] == (512, 128) and got["r"] == (128, 128)
+    assert got["spec"] == (("z", "y", "x"), None) and got["res"] < 1e-5
     grid = Grid.rect(c=1, device="cpu")
     a = torch.from_numpy(_operand(512, 128, 0))
     assert cacqr.gram_hybrid(grid, a).shape == (128, 128)

@@ -13,6 +13,7 @@ from jax.sharding import PartitionSpec as JP
 
 import capital_tpu
 import capital_tpu_torch
+import torch_mesh_ranks
 from capital_tpu import matrix as jmatrix
 from capital_tpu import tracing as jtracing
 from capital_tpu.algs import cholinv as jcholinv
@@ -73,9 +74,11 @@ def test_view_roles_match_jax():
 
 
 def test_device_counts_raise_as_in_jax():
-    """A device count the shape does not take is a ValueError in both; a
-    grid of more than one device raises NotImplementedError in the port
-    (M9b) where the JAX package builds it."""
+    """A device count the shape does not take is a ValueError in both. A
+    grid of more than one device needs a world in the port (one rank a
+    device): outside one it raises RuntimeError; inside a 4-rank world
+    (tests/torch_mesh_ranks.py) the constructors build on the world's
+    ranks, as the JAX package's build on its devices."""
     two, four = jax.devices("cpu")[:2], jax.devices("cpu")[:4]
     for jmake, make in (
             (lambda: JGrid.square(c=1, d=1, devices=two),
@@ -92,8 +95,14 @@ def test_device_counts_raise_as_in_jax():
     for make in (lambda: Grid.square(devices=["cpu"] * 4),
                  lambda: Grid.rect(c=1, devices=["cpu"] * 2),
                  lambda: Grid.hybrid(c=2, d=1, device="cpu")):
-        with pytest.raises(NotImplementedError, match="M9b"):
+        with pytest.raises(RuntimeError, match="start a world"):
             make()
+    got = torch_mesh_ranks.world(torch_mesh_ranks.small_world, ranks=4)
+    assert (got["square"], got["rect"], got["hybrid"]) == (
+        JGrid.square(devices=four).shape, JGrid.rect(c=1, devices=four).shape,
+        JGrid.hybrid(devices=four).shape) == ((1, 2, 2), (1, 4, 1), (1, 2, 2))
+    assert got["local"] == (1, 1, 1)  # device= asks for the local grid
+    assert got["too_big"][0] == "ValueError"
     with pytest.raises(ValueError, match="not both"):
         Grid.square(devices=["cpu"], device="cpu")
     with pytest.raises(ValueError, match="layout"):

@@ -113,7 +113,10 @@ def test_factor_refuses_an_operand_off_the_grid_device():
 
 @pytest.mark.parametrize("c,d", [(2, 1), (1, 2), (2, 2)])
 def test_multi_device_grid_is_not_ported_yet(c, d):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A grid of more than one device needs a world (one rank a device):
+    asked for on one device outside one, it is refused, never quietly
+    built on that device."""
+    with pytest.raises(RuntimeError, match="start a world"):
         Grid.square(c=c, d=d, device="cpu")
 
 
