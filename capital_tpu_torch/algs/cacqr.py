@@ -119,9 +119,11 @@ def _resolve_gram_kernel(kernel: str, dtype, platform: str,
 
 
 def _local_gram(a: torch.Tensor, kernel: str) -> torch.Tensor:
-    """A^T A in f32: the SYRK kernel for 'tri', else blas.gram_dot."""
+    """A^T A in f32: the SYRK kernel for 'tri' (on a row-major copy of an
+    operand whose columns are strided, as LAPACK's column-major Q of the
+    TSQR leaf is), else blas.gram_dot."""
     if kernel == "tri":
-        return syrk_upper(a)
+        return syrk_upper(a if a.stride(-1) == 1 else a.contiguous())
     return blas.gram_dot(a)
 
 # The packed triangle is tile-granular: the upper T x T tiles (i <= j)

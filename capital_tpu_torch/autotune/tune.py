@@ -19,13 +19,32 @@ device, where every recorded link byte is 0.
 Search axes are the JAX package's: bc_mult, split, complete_inv, base
 method, base policy, workspace, summa impl and chunking, precision for
 cholinv; path, gram policy, gram kernel and formq_chunks for cacqr; nb and
-lookahead for LU; base_n and sign_l0 for eigh. The one-device spaces are
-the JAX package's own one-device spaces, except that `gram_kernel` sweeps
-['dot', 'tri'] on 'gpu' as the JAX package does on 'tpu' (the port's
-'auto' sends an f32 Gram to the SYRK kernel there, as the JAX package's
-does on a TPU). Grid shapes of more than one device raise
-NotImplementedError: the tuner's sweep over world grids waits (ROADMAP
-queue M).
+lookahead for LU; base_n and sign_l0 for eigh. The spaces are the JAX
+package's own, except that `gram_kernel` sweeps ['dot', 'tri'] on 'gpu'
+as the JAX package does on 'tpu' (the port's 'auto' sends an f32 Gram to
+the SYRK kernel there, as the JAX package's does on a TPU).
+
+The grid-shape sweep (sweep_grids, `--grid sweep`) runs one world of P
+ranks, one a device (launch.devices_for, launch.run_on): CPU devices are
+gloo CPU ranks (`--cpu`: 8, the JAX package's 8 virtual CPU devices),
+cards one NCCL rank each, and under torchrun the world is torchrun's.
+Each shape of grid_candidates is a grid of that world: the square c x d
+x d grids over ranks 0 .. c*d*d - 1 (Grid.square(_prefix=True)), the
+rect grids over all P; a rank outside a shape's grid waits at a world
+barrier. A candidate's time is the slowest rank's best of num_iter (a
+barrier before each call), and its costs are rank 0's per-rank records,
+as the JAX package's are per device.
+
+Every rank of a grid must decide alike, since a rank that leaves a
+candidate while the others are inside one of its collectives pairs the
+collectives wrongly. The config and shape checks that make a candidate
+invalid (_INVALID_CONFIG) depend only on the config and the shapes, so
+every rank raises them alike; a card running out of memory, which one
+rank can do alone, is a config result on a one-rank grid only, and a
+fault (the world stops) on a grid across ranks. The error flag that is
+all-reduced over the grid before a candidate is recorded marks it on
+every rank when a rank raised after the grid's last collective; it
+cannot rescue a rank that raised while the others were inside one.
 """
 
 from __future__ import annotations
@@ -38,15 +57,14 @@ from dataclasses import dataclass, field
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 
 from capital_tpu_torch import tracing
-from capital_tpu_torch.grid import Grid, default_device
+from capital_tpu_torch.bench.common import (_perturb, grid_barrier, slowest,
+                                            time_call)
+from capital_tpu_torch.grid import Grid, in_world
 from capital_tpu_torch.ops.precision import default_matmul_precision
-
-_NOT_PORTED = ("the tuner's grid shapes over more than one device and its "
-               "multi-device CPU mesh are not ported: the world grids of "
-               "M9b and M10 exist, the tuner's sweep over them waits "
-               "(ROADMAP queue M)")
+from capital_tpu_torch.parallel import launch
 
 
 @dataclass
@@ -80,35 +98,37 @@ def _trace_costs(fn, args, level: str) -> tuple[dict, float]:
     return _costs(t, level)
 
 
-def _measure(fn, args, num_iter: int) -> float:
+def _measure(fn, args, num_iter: int, grid: Grid) -> float:
     """Best seconds of num_iter calls, each on fresh inputs and timed with
     the device's queue drained before and after (after the warm-up call
-    of _trace_costs)."""
-    from capital_tpu_torch.bench.common import _perturb, time_call
-
-    device = next(x.device for x in args if isinstance(x, torch.Tensor))
+    of _trace_costs); across ranks each call starts at a barrier of the
+    grid's ranks, and the result is the slowest rank's best."""
     best = float("inf")
     for i in range(num_iter):
         fresh = _perturb(args, i)
-        secs, out = time_call(lambda: fn(*fresh), device)
+        grid_barrier(grid)
+        secs, out = time_call(lambda: fn(*fresh), grid.device)
         del out, fresh
         best = min(best, secs)
-    return best
+    return slowest(grid, best)
 
 
-# What a config that does not fit the shape, grid or card raises: the
-# Config and shape checks' ValueError / TypeError / NotImplementedError, and
-# a card whose memory cannot hold the candidate. Anything else (a kernel
-# that fails to build or launch, a CUDA error) is a fault, not a config
-# result, and propagates.
-_INVALID_CONFIG = (ValueError, TypeError, NotImplementedError,
-                   torch.cuda.OutOfMemoryError)
+# What a config that does not fit the shape or grid raises: the Config and
+# shape checks' ValueError / TypeError / NotImplementedError, alike on
+# every rank; on a one-rank grid also a card whose memory cannot hold the
+# candidate. Anything else (a kernel that fails to build or launch, a CUDA
+# error, one rank out of memory on a grid across ranks) is a fault, not a
+# config result, and propagates.
+_INVALID_CONFIG = (ValueError, TypeError, NotImplementedError)
 
 
-def _sweep(space: dict, run) -> list[Candidate]:
+def _sweep(grid: Grid, space: dict, run) -> list[Candidate]:
     """Every point of the product of space's lists: run(params, cand)
-    fills the candidate; an _INVALID_CONFIG exception is recorded as its
-    error."""
+    fills the candidate; an invalid config's exception (_INVALID_CONFIG)
+    is recorded as its error, on every rank of the grid when any rank
+    raised one."""
+    invalid = (_INVALID_CONFIG if grid.num_devices > 1
+               else _INVALID_CONFIG + (torch.cuda.OutOfMemoryError,))
     out = []
     keys = list(space)
     for vals in itertools.product(*(space[k] for k in keys)):
@@ -116,8 +136,10 @@ def _sweep(space: dict, run) -> list[Candidate]:
         cand = Candidate(params=params)
         try:
             run(params, cand)
-        except _INVALID_CONFIG as e:
+        except invalid as e:
             cand.error = f"{type(e).__name__}: {e}"
+        if slowest(grid, float(cand.error is not None)) and not cand.error:
+            cand.error = "failed on another rank of the grid"
         out.append(cand)
     return out
 
@@ -160,9 +182,9 @@ def sweep_cholinv(grid: Grid, a, space: dict | None = None,
         with default_matmul_precision(level):
             fn = lambda x: factor(grid, x, cfg)  # noqa: E731
             cand.costs, cand.model_time_s = _trace_costs(fn, (a,), level)
-            cand.time_s = _measure(fn, (a,), num_iter)
+            cand.time_s = _measure(fn, (a,), num_iter, grid)
 
-    return _sweep(space, run)
+    return _sweep(grid, space, run)
 
 
 def cacqr_paths(grid: Grid) -> list[str]:
@@ -202,9 +224,9 @@ def sweep_cacqr(grid: Grid, a, space: dict | None = None,
         with default_matmul_precision(level):
             fn = lambda x: factor(grid, x, cfg)  # noqa: E731
             cand.costs, cand.model_time_s = _trace_costs(fn, (a,), level)
-            cand.time_s = _measure(fn, (a,), num_iter)
+            cand.time_s = _measure(fn, (a,), num_iter, grid)
 
-    return _sweep(space, run)
+    return _sweep(grid, space, run)
 
 
 def sweep_lu(grid: Grid, a, space: dict | None = None,
@@ -233,14 +255,14 @@ def sweep_lu(grid: Grid, a, space: dict | None = None,
             with default_matmul_precision(level):
                 fn = lambda x: lu.factor(grid, x, cfg)  # noqa: E731
                 cand.costs, cand.model_time_s = _trace_costs(fn, (a,), level)
-                cand.time_s = _measure(fn, (a,), num_iter)
+                cand.time_s = _measure(fn, (a,), num_iter, grid)
         finally:
             if prev_la is None:
                 os.environ.pop("CAPITAL_LU_LOOKAHEAD", None)
             else:
                 os.environ["CAPITAL_LU_LOOKAHEAD"] = prev_la
 
-    return _sweep(space, run)
+    return _sweep(grid, space, run)
 
 
 def sweep_eigh(grid: Grid, a, space: dict | None = None,
@@ -275,29 +297,32 @@ def sweep_eigh(grid: Grid, a, space: dict | None = None,
             cand.costs["residual"] = float(validate.eig_residual(
                 grid, a, w, v, chunks=max(1, a.shape[0] // 2048)))
             del w, v
-            cand.time_s = _measure(fn, (a,), num_iter)
+            cand.time_s = _measure(fn, (a,), num_iter, grid)
 
-    return _sweep(space, run)
+    return _sweep(grid, space, run)
 
 
 def _devices(devices) -> list:
-    if devices is not None:
-        return list(devices)
-    if torch.cuda.is_available():
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    return [default_device()]  # raises: no card, no device asked for
+    """The devices a grid sweep spans: those given, else the world's
+    ranks or the visible cards (launch.devices_for)."""
+    return list(devices) if devices is not None else launch.devices_for()
 
 
 def grid_candidates(devices=None):
-    """Feasible grid shapes for the device count as (kind, c, d) triples:
-    (square, 1, 1) on one device. More devices raise NotImplementedError
-    (the JAX package's square and rect sub-grid shapes wait)."""
+    """Feasible grid shapes for P devices as (kind, c, d) triples, the JAX
+    package's: (square, 1, 1), the square c x d x d sub-grids (c in 1, 2,
+    4; d in 2, 4, 8; 1 < c*d*d <= P) and the rect grids of c over all P
+    (c in 2, 4; c^2 < P, P divisible by c^2)."""
     p = len(_devices(devices))
-    if p > 1:
-        raise NotImplementedError(f"grid shapes over {p} devices: "
-                                  f"{_NOT_PORTED}")
-    return [("square", 1, 1)]
+    out = [("square", 1, 1)]
+    for c in (1, 2, 4):
+        for d in (2, 4, 8):
+            if 1 < c * d * d <= p:
+                out.append(("square", c, d))
+    for c in (2, 4):
+        if c * c < p and p % (c * c) == 0:
+            out.append(("rect", c, p // (c * c)))
+    return out
 
 
 def _operand(alg: str, grid: Grid, n: int, m: int):
@@ -320,30 +345,55 @@ _SWEEPS = {"cholinv": sweep_cholinv, "cacqr": sweep_cacqr, "lu": sweep_lu,
            "eigh": sweep_eigh}
 
 
+def _sweep_shapes(device, alg: str, n: int, m: int, shapes, space,
+                  num_iter: int, tag: bool) -> list[Candidate]:
+    """One rank's part of a grid sweep (launch.run_on: device None in a
+    world, else the one device): each shape's algorithm sweep on its
+    grid, every rank of the world taking the shapes in one order. With
+    tag (sweep_grids), a shape whose grid cannot be built is skipped and
+    eigh and LU skip the rect shapes, as the JAX package's sweep_grids
+    does, and each candidate's params lead with the grid tag and device
+    count; without it (one --grid) the grid's error propagates. Rank 0
+    returns the candidates, every other rank []."""
+    out: list[Candidate] = []
+    for kind, c, d in shapes:
+        if tag and alg in ("eigh", "lu") and kind != "square":
+            continue  # their 2d stages want a square slice
+        try:
+            grid = (Grid.square(c=c, d=d, device=device, _prefix=True)
+                    if kind == "square" else Grid.rect(c=c, device=device))
+        except ValueError:
+            if not tag:
+                raise
+            continue
+        if grid.on_this_rank:
+            cands = _SWEEPS[alg](grid, _operand(alg, grid, n, m), space,
+                                 num_iter=num_iter)
+            if tag:
+                label = f"{kind}-c{c}x{grid.d1}x{grid.d2}"
+                for cand in cands:
+                    cand.params = {"grid": label,
+                                   "devices": grid.num_devices,
+                                   **cand.params}
+            out.extend(cands)
+        if device is None:
+            dist.barrier()  # the ranks outside the grid wait here
+    return [] if device is None and dist.get_rank() != 0 else out
+
+
 def sweep_grids(alg: str = "cholinv", n: int = 4096, m: int = 1 << 18,
                 shapes=None, space: dict | None = None, num_iter: int = 2,
                 devices=None) -> list[Candidate]:
-    """Outer sweep over grid shapes, inner sweep over the algorithm's
-    config space; each candidate's params carry the grid tag and device
-    count. A grid of more than one device raises NotImplementedError."""
+    """Outer sweep over grid shapes (grid_candidates of the devices by
+    default), inner sweep over the algorithm's config space, on one rank
+    a device (launch.run_on: the world this process is a rank of, or one
+    launched for the sweep); each candidate's params carry the grid tag
+    and device count. Rank 0's candidates (inside a world every other
+    rank gets [])."""
     devs = _devices(devices)
     shapes = shapes or grid_candidates(devs)
-    out: list[Candidate] = []
-    for kind, c, d in shapes:
-        if kind == "square":
-            grid = Grid.square(c=c, d=d, devices=devs[: c * d * d])
-        else:
-            grid = Grid.rect(c=c, devices=devs)
-        if alg in ("eigh", "lu") and kind != "square":
-            continue  # their 2d stages want a square slice
-        tag = f"{kind}-c{c}x{grid.d1}x{grid.d2}"
-        cands = _SWEEPS[alg](grid, _operand(alg, grid, n, m), space,
-                             num_iter=num_iter)
-        for cand in cands:
-            cand.params = {"grid": tag, "devices": grid.num_devices,
-                           **cand.params}
-        out.extend(cands)
-    return out
+    return launch.run_on(_sweep_shapes, devs, alg, n, m, list(shapes),
+                         space, num_iter, True)
 
 
 def best(cands: Sequence[Candidate]) -> Candidate:
@@ -402,6 +452,18 @@ def write_tables(cands: Sequence[Candidate], prefix: str,
             f.write(json.dumps(c.record()) + "\n")
 
 
+def _grid_spec(gspec: str) -> tuple[str, int, int]:
+    parts = gspec.split(":")
+    try:
+        if parts[0] == "square" and len(parts) == 3:
+            return "square", int(parts[1]), int(parts[2])
+        if parts[0] == "rect" and len(parts) == 2:
+            return "rect", int(parts[1]), 0
+    except ValueError:
+        pass
+    raise SystemExit(f"bad --grid {gspec!r}")
+
+
 def main(argv=None):
     import argparse
 
@@ -416,20 +478,23 @@ def main(argv=None):
                    help="table files' prefix (default autotune_torch_<alg>)")
     p.add_argument("--grid", default="auto",
                    help="'sweep' = grid-shape sweep over the feasible "
-                        "grids; 'square:C:D'; 'rect:C'; 'auto' = sweep when "
-                        "more than one device is visible")
+                        "grids; 'square:C:D' (on C*D*D ranks); 'rect:C' (on "
+                        "every rank); 'auto' = sweep when more than one "
+                        "device is visible")
     p.add_argument("--cpu", action="store_true",
-                   help="sweep on the virtual multi-device CPU mesh (not "
-                        "ported: raises)")
+                   help=f"{launch.CPU_RANKS} gloo CPU ranks (the JAX "
+                        "package's virtual CPU mesh), even when a card is "
+                        "visible")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="cuda = the visible cards (default), cpu = one CPU "
-                        "device")
+                   help="cuda = the visible cards, one NCCL rank a card "
+                        "(default), cpu = one CPU device")
     args = p.parse_args(argv)
-    if args.cpu:
-        raise NotImplementedError(f"--cpu: {_NOT_PORTED}")
 
-    devs = (_devices(None) if args.device == "cuda"
-            else [torch.device("cpu")])
+    # --cpu: the JAX package's CPU ranks; --device cpu: one CPU device, as
+    # in the scaling sweep and the port's other benches (under torchrun:
+    # the world's ranks)
+    devs = launch.devices_for("cpu" if args.cpu else args.device,
+                              cpu_ranks=launch.CPU_RANKS if args.cpu else 1)
     gspec = args.grid
     if gspec == "auto":
         gspec = "sweep" if len(devs) > 1 else "square:1:1"
@@ -438,22 +503,17 @@ def main(argv=None):
                             num_iter=args.num_iter, devices=devs)
         nd = 1
     else:
-        parts = gspec.split(":")
-        if parts[0] == "square":
-            c, d = int(parts[1]), int(parts[2])
-            if c * d * d > 1:
-                raise NotImplementedError(f"--grid {gspec}: {_NOT_PORTED}")
-            grid = Grid.square(c=c, d=d, devices=devs[: c * d * d])
-        elif parts[0] == "rect":
-            if int(parts[1]) > 1:
-                raise NotImplementedError(f"--grid {gspec}: {_NOT_PORTED}")
-            grid = Grid.rect(c=int(parts[1]), devices=devs)
-        else:
-            raise SystemExit(f"bad --grid {args.grid!r}")
-        a = _operand(args.alg, grid, args.n, args.m)
-        cands = _SWEEPS[args.alg](grid, a, num_iter=args.num_iter)
-        del a
-        nd = grid.num_devices
+        shape = _grid_spec(gspec)
+        nd = (shape[1] * shape[2] ** 2 if shape[0] == "square"
+              else len(devs))
+        if nd > len(devs):
+            raise ValueError(f"--grid {gspec} needs {nd} devices, "
+                             f"{len(devs)} visible")
+        ranks = devs[:nd] if not in_world() else devs
+        cands = launch.run_on(_sweep_shapes, ranks, args.alg, args.n,
+                              args.m, [shape], None, args.num_iter, False)
+    if in_world() and dist.get_rank() != 0:
+        return cands  # rank 0 reports
 
     prefix = args.prefix or f"autotune_torch_{args.alg}"
     write_tables(cands, prefix, num_devices=nd)

@@ -59,9 +59,10 @@ def main(argv=None):
     if grid.num_devices > 1:  # across ranks only --donate and --remat
         idle = [f for f in idle if f in ("--remat", "--donate")]
     if idle:
-        p.error(f"{', '.join(idle)}: no effect on one device (factor "
-                "always copies A into its workspace); multi-device "
-                "schedules are ROADMAP queue M")
+        p.error(f"{', '.join(idle)}: no effect on one device: a grid of "
+                "one rank has no schedule across ranks to choose, and factor "
+                "always copies A into its workspace (run under torchrun "
+                "for a grid of several ranks)")
     with apply_precision(args):
         return _run(args, grid, dev)
 

@@ -131,6 +131,31 @@ def time_call(fn, device: torch.device) -> tuple[float, object]:
     return time.perf_counter() - t0, out
 
 
+def _across(grid) -> bool:
+    return grid.mesh is not None and grid.num_devices > 1
+
+
+def grid_barrier(grid) -> None:
+    """Wait for every rank of the grid (nothing to wait for on one)."""
+    if _across(grid):
+        import torch.distributed as dist
+
+        from capital_tpu_torch.grid import ALL_AXES
+
+        dist.barrier(group=grid.mesh.group(ALL_AXES))
+
+
+def slowest(grid, x: float) -> float:
+    """The largest x over the grid's ranks (a time: the slowest rank's)."""
+    if not _across(grid):
+        return x
+    from capital_tpu_torch.grid import ALL_AXES
+    from capital_tpu_torch.parallel import collectives as coll
+
+    t = torch.tensor([x], dtype=torch.float64, device=grid.device)
+    return float(coll.pmax(t, grid.mesh, ALL_AXES)[0])
+
+
 def timed_loop(fn, device: torch.device, num_iter: int, warmup: int = 1):
     """Warm up + timed loop; returns (min_secs, times, last_out). Each
     iteration's output is freed before the next call."""

@@ -90,7 +90,12 @@ class Mesh:
     """The (c, d1, d2) table of global ranks of a world, axes ('z', 'y',
     'x'), with this rank's coordinates, the torch DeviceMesh over it and a
     process group for each non-empty set of axes (all created here, in
-    one order on every rank, as process groups must be)."""
+    one order on every rank, as process groups must be).
+
+    The table may cover part of the world (the tuner's and the scaling
+    sweep's sub-grids): every rank of the world builds the Mesh, since
+    creating a group is collective, and a rank outside the table has
+    `coord` None and holds no group."""
 
     def __init__(self, ranks: np.ndarray, device: torch.device):
         from torch.distributed.device_mesh import DeviceMesh
@@ -99,9 +104,10 @@ class Mesh:
         self.shape = dict(zip(ALL_AXES, self.ranks.shape))
         me = dist.get_rank()
         where = np.argwhere(self.ranks == me)
-        if len(where) != 1:
-            raise ValueError(f"rank {me} is not in the mesh {self.ranks}")
-        self.coord = dict(zip(ALL_AXES, (int(i) for i in where[0])))
+        if len(where) > 1:
+            raise ValueError(f"the mesh {self.ranks} names rank {me} twice")
+        self.coord = (dict(zip(ALL_AXES, (int(i) for i in where[0])))
+                      if len(where) else None)
         self.device_mesh = DeviceMesh(device.type,
                                       torch.from_numpy(self.ranks),
                                       mesh_dim_names=ALL_AXES)
@@ -109,7 +115,9 @@ class Mesh:
         for k in (1, 2, 3):
             for axes in itertools.combinations(ALL_AXES, k):
                 if k == 1:
-                    self._groups[axes] = self.device_mesh.get_group(axes[0])
+                    if self.coord is not None:
+                        self._groups[axes] = self.device_mesh.get_group(
+                            axes[0])
                     continue
                 for members in self._partition(axes):
                     g = dist.new_group(sorted(members))
@@ -276,18 +284,28 @@ class Grid:
     @classmethod
     def square(cls, c: int = 1, d: int | None = None,
                devices: Sequence[Any] | None = None, layout: int = 0,
-               device=None) -> "Grid":
+               device=None, *, _prefix: bool = False) -> "Grid":
         """c-deep d x d grid: over the world's ranks (P = c*d*d of them)
         inside a world when neither devices= nor device= is given, else
-        the one-device grid on `device` (default cuda:0)."""
+        the one-device grid on `device` (default cuda:0).
+
+        _prefix (the tuner's and the scaling sweep's sub-grids, the JAX
+        package's Grid.square(c, d, devices=devs[:c*d*d])): over ranks
+        0 .. c*d*d - 1 of a world that may hold more; every rank of the
+        world builds it (creating groups is collective), and on a rank
+        outside it `on_this_rank` is False."""
         if devices is None and device is None and in_world():
             p = _world_size()
             if d is None:
                 d = math.isqrt(p // c)
-            if c * d * d != p:
+            if c < 1 or d < 1 or c * d * d > p or (c * d * d != p
+                                                   and not _prefix):
+                rel = "<=" if _prefix else "=="
                 raise ValueError(
-                    f"square grid needs c*d*d == P: c={c}, d={d}, P={p}")
-            return cls._world((c, d, d), layout)
+                    f"square grid needs c*d*d {rel} P: c={c}, d={d}, P={p}")
+            shape = (c, d, d)
+            return cls._world(shape, layout, ranks=_permute(
+                np.arange(math.prod(shape)), shape, layout))
         devs = _device_table(devices, device)
         if d is None:
             d = math.isqrt(len(devs) // c)
@@ -353,6 +371,12 @@ class Grid:
         return cls._world((c, d, d), 0, ranks=ranks)
 
     # ---- properties ----------------------------------------------------
+
+    @property
+    def on_this_rank(self) -> bool:
+        """False on a rank of the world outside a square(_prefix=True)
+        grid, which holds no block of it."""
+        return self.mesh is None or self.mesh.coord is not None
 
     @property
     def c(self) -> int:

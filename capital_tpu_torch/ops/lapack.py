@@ -122,13 +122,14 @@ chol_inv.xla_calls = 0
 
 
 def lu(a: torch.Tensor):
-    """(lu, pivots, perm) of an (m, k) matrix by torch.linalg.lu_factor:
+    """(lu, pivots, perm) of an (m, k) matrix by torch.linalg's getrf:
     lu holds L (unit diagonal implicit) below and U on and above the
     diagonal, row-swapped; pivots (min(m, k),) int32 are 0-based LAPACK
     swap targets; perm (m,) int32 has lu = a[perm]. Low-precision storage
-    factors in f32 and is rounded back."""
+    factors in f32 and is rounded back. A singular matrix factors with a
+    zero pivot, as lax.linalg.lu's does (no error)."""
     lu.library_calls += 1
-    lu_, piv = torch.linalg.lu_factor(_f32in(a))
+    lu_, piv, _ = torch.linalg.lu_factor_ex(_f32in(a))
     piv = (piv - 1).to(torch.int32)   # LAPACK's are 1-based
     return lu_.to(a.dtype), piv, perm_from_pivots(piv, a.shape[0])
 

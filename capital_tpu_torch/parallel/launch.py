@@ -15,6 +15,12 @@ stops the others and raises RuntimeError with that rank's traceback.
 
 Under `torchrun` the world is already described by the environment:
 `init_from_env()` initialises it there (the benches call it).
+
+An entry point over a device list (the tuner's grid sweep, the scaling
+sweep, the multi-device dry run) takes its devices from
+`devices_for(device, n)` and runs through `run_on(fn, devices, *args)`:
+one rank a device, in the world this process is a rank of, or in one
+launched for the call.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 import torch.distributed as dist
 
 _WORLD_DEVICE: torch.device | None = None
+CPU_RANKS = 8  # CPU ranks by default: the JAX package's 8 virtual devices
 
 
 def backend_for(device_type: str) -> str:
@@ -170,3 +177,75 @@ def launch(fn, nprocs: int, *args, device="cuda", backend: str | None = None,
         raise RuntimeError(f"launch({getattr(fn, '__name__', fn)}, "
                            f"{nprocs}): {failure}")
     return [got[r] for r in range(nprocs)]
+
+
+def devices_for(device: str = "cuda", n: int | None = None,
+                cpu_ranks: int = CPU_RANKS) -> list:
+    """The devices of an entry point over ranks, one rank each. In the
+    world this process is a rank of (torchrun's, which this initialises:
+    init_from_env), one entry a rank, each rank standing for its own
+    device; n, when given, must be the world's size. Else n gloo CPU
+    ranks (default cpu_ranks) for 'cpu', or the cards cuda:0 .. n-1
+    (default every visible card) for 'cuda', raising RuntimeError when
+    fewer are visible: a rank never moves to the CPU unasked."""
+    if init_from_env(device):
+        world = dist.get_world_size()
+        if n not in (None, world):
+            raise ValueError(f"{n} devices asked for in a world of {world} "
+                             "ranks")
+        return [world_device()] * world
+    if device == "cpu":
+        return [torch.device("cpu")] * (n or cpu_ranks)
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    n = n or visible
+    if not 0 < n <= visible:
+        raise RuntimeError(("no CUDA device: " if not visible else "")
+                           + f"{n or 'some'} cards asked for, {visible} "
+                           "visible")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def world_of(devices) -> tuple[int, str]:
+    """(ranks, launch device) of a device list: CPU devices are gloo CPU
+    ranks ('cpu'); CUDA devices one NCCL rank a card ('cuda'), each a
+    different visible card. Raises ValueError for a mix of kinds, a card
+    named twice, and RuntimeError for a card that is not visible: a rank
+    never quietly shares a card or moves to the CPU."""
+    devs = [torch.device(d) for d in devices]
+    kinds = {d.type for d in devs}
+    if not devs or len(kinds) != 1:
+        raise ValueError(f"one kind of device a world, got {devices}")
+    if kinds == {"cpu"}:
+        return len(devs), "cpu"
+    idx = [d.index if d.index is not None else i for i, d in enumerate(devs)]
+    if len(set(idx)) != len(idx):
+        raise ValueError(f"a card named twice in {devices}")
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if max(idx) >= visible or idx != list(range(len(idx))):
+        raise RuntimeError(f"{len(devs)} ranks need cards cuda:0.."
+                           f"{len(devs) - 1}, {visible} visible")
+    return len(devs), "cuda"
+
+
+def run_on(fn, devices, *args, timeout: float = 900.0):
+    """fn(device, *args) on one rank a device of `devices`; rank 0's
+    result. Inside a world it runs here, on every rank, each getting its
+    own result, with device None (the grid constructors build on the
+    world's ranks); the world must have one rank a device, and each rank
+    stands for its own, so `devices` may name one device a rank (under
+    NCCL each rank's cuda:LOCAL_RANK). Outside one, a single device runs
+    here with no world and device that device (its one-device grids are
+    built on it); more run on a world launched for the call (world_of:
+    CPU ranks share the host's cores, one thread each at least), with
+    device None."""
+    if dist.is_available() and dist.is_initialized():
+        if dist.get_world_size() != len(devices):
+            raise ValueError(f"{len(devices)} devices asked for in a world "
+                             f"of {dist.get_world_size()} ranks")
+        return fn(None, *args)
+    n, device = world_of(devices)
+    if n == 1:
+        return fn(torch.device(devices[0]), *args)
+    threads = max(1, (os.cpu_count() or 1) // n) if device == "cpu" else None
+    return launch(fn, n, None, *args, device=device, threads=threads,
+                  timeout=timeout)[0]

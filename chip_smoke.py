@@ -141,7 +141,11 @@
    chiprun_out/autotune/), each alg's best params, time, candidate and
    error counts printed; any candidate error fails (the JAX tuner's
    one-device spaces hold only configs valid for these shapes), and each
-   sweep must launch the kernels its path reaches; [hybrid]
+   sweep must launch the kernels its path reaches; then the grid-shape
+   sweep (tune.main --grid sweep) of cholinv at n = 4096 on the visible
+   cards, one NCCL rank a card (grid_candidates: (square, 1, 1) alone on
+   one card), whose candidates must carry the grid and device-count
+   columns; [hybrid]
    cacqr.factor_hybrid on the one-device rect grid at 2^20 x 1024 f32
    'highest' (launches from its call tree, orthogonality and residual by
    the kernels and in f64 below 1e-5, its time beside factor_1d's on the
@@ -149,9 +153,16 @@
    base case 512 (16 Cholesky leaves and no other kernel: its window
    products are plain products; residuals below 1e-5; its time beside
    cholinv.factor's); [drivers] bench.summa_gemm at 8192^3 'highest'
-   (tile_rel_err below 1e-5), bench.scaling --alg cholinv, entry()'s step
-   (residuals below 1e-5) and the four examples, each held to its own
-   bounds and launching its kernels.
+   (tile_rel_err below 1e-5), bench.scaling --alg cholinv, and again with
+   --devices set to the visible cards (its shapes those c*d*d of them
+   hold), entry()'s step (residuals below 1e-5) and the four examples,
+   each held to its own bounds and launching its kernels.
+   [dryrun] entry.dryrun_multichip over a world of one NCCL rank a card
+   (the JAX dry run's steps, configs and bounds, in its order: each
+   step's figure must hold its bound); on the rank's card it must launch
+   SYRK, TRMM and the LU leaf (the Cholesky leaf not: its configs take
+   torch.linalg's leaf or blocks narrower than 128) and run no plain LU
+   leaf or library panel.
    [mesh] the multi-device substrate over NCCL, one rank a card
    (parallel/launch.py; one rank on a one-card machine), grids from the
    world's constructors: cholinv.factor at n = 32768 'high', base case
@@ -211,7 +222,8 @@ take their launches from the [eigh] run, and the leaf's n = 512 row
 carries that run's leaf launches as `launches_eigh`; the rows "rsvd",
 "R:rsvd", "rsvd_bf16" and "R:rsvd_bf16" from the first call of their
 rSVD path. Every row also carries `launches_autotune`, `launches_hybrid`,
-`launches_cyclic`, `launches_drivers` and `launches_mesh` (rank 0's):
+`launches_cyclic`, `launches_drivers`, `launches_mesh` and
+`launches_dryrun` (the last two rank 0's):
 its kernel's (for TRMM, its case's) launches in those phases, at every
 precision.
 """
@@ -305,6 +317,7 @@ AUTOTUNE_ALGS = {"cholinv": ("trmm_upper", "syrk_upper", "chol_inv"),
                  "cacqr": ("trmm_upper", "syrk_upper"),
                  "lu": ("getrf_leaf",),
                  "eigh": ("trmm_upper", "syrk_upper", "chol_inv")}
+AUTOTUNE_GRID_N = 4096  # the grid-shape sweep's cholinv operand
 HYBRID_SHAPE = (1 << 20, 1024)
 CYCLIC_RUN = (8192, 512)
 SUMMA_GEMM_TOL = 1e-5
@@ -325,6 +338,10 @@ MESH_POLICIES = ("replicated", "layer", "gather", "gather_overlap")
 MESH_IMPLS = ("shard_map", "ring", "gspmd")
 # [mesh]'s solver layer: the triangular calls at n, right-hand sides k
 MESH_TRI = (4096, 256)
+# [dryrun]: the kernels the dry run must launch on the card, and the
+# plain-version and library routes it must not take
+DRYRUN_KERNELS = ("trmm_upper", "syrk_upper", "getrf_leaf")
+DRYRUN_FALLBACKS = ("leaf_plain", "lu_library")
 # the examples' kernels: each must launch at least once in its run
 EXAMPLE_KERNELS = {
     "gp_regression": ("trmm_upper", "syrk_upper"),
@@ -2475,6 +2492,39 @@ def autotune_phase(failures: list) -> dict:
               f"{best.model_time_s * 1e3:.3f} ms), {len(cands)} candidates, "
               f"{len(errors)} errors, {secs:.1f} s", flush=True)
         torch.cuda.empty_cache()
+
+    reset_counters()
+    t0 = time.perf_counter()
+    cands = tune.main(["--alg", "cholinv", "--grid", "sweep", "--n",
+                       str(AUTOTUNE_GRID_N), "--prefix",
+                       os.path.join(work, "autotune_torch_cholinv_grid")])
+    secs = time.perf_counter() - t0
+    got = counters()
+    errors = [c.error for c in cands if c.error]
+    for err in errors:
+        failures.append(f"autotune grid sweep: candidate error {err}")
+    untagged = [c.params for c in cands
+                if not {"grid", "devices"} <= set(c.params)]
+    if not cands or untagged:
+        failures.append(f"autotune grid sweep: candidates without the grid "
+                        f"columns {untagged}")
+    for k in AUTOTUNE_ALGS["cholinv"]:
+        if not got[k]:
+            failures.append(f"autotune grid sweep: {k} never launched")
+    best = tune.best(cands) if cands else None
+    grids = sorted({c.params.get("grid") for c in cands})
+    out["cholinv_grid"] = {
+        "n": AUTOTUNE_GRID_N, "cards": torch.cuda.device_count(),
+        "grids": grids, "candidates": len(cands), "errors": len(errors),
+        "best": best.params if best else None,
+        "best_time_s": best.time_s if best else None,
+        "seconds": secs, "launches": got,
+        "records": [c.record() for c in cands]}
+    print(f"[autotune] cholinv grid sweep: grids {grids}, best "
+          f"{json.dumps(best.params if best else None)} "
+          f"{(best.time_s if best else float('nan')) * 1e3:.3f} ms, "
+          f"{len(cands)} candidates, {len(errors)} errors, {secs:.1f} s",
+          flush=True)
     return out
 
 
@@ -2604,6 +2654,20 @@ def drivers_phase(failures: list) -> dict:
     if got != want:
         failures.append(f"scaling: launch counts {got} != {want}")
     out["scaling"] = {**row, "launches": got}
+
+    cards = torch.cuda.device_count()
+    reset_counters()
+    rows = scaling.main(["--alg", "cholinv", "--devices", str(cards)])
+    got = counters()
+    shapes = [[c, d, d] for c, d in scaling.SHAPES if c * d * d <= cards]
+    if [r["grid"] for r in rows] != shapes:
+        failures.append(f"scaling --devices {cards}: grids "
+                        f"{[r['grid'] for r in rows]} != {shapes}")
+    if cards == 1 and got != want:
+        failures.append(f"scaling --devices 1: launch counts {got} != "
+                        f"{want}")
+    out["scaling_devices"] = {"devices": cards, "rows": rows,
+                              "launches": got}
 
     fn, (a,) = entry()
     reset_counters()
@@ -3283,6 +3347,59 @@ def mesh_phase(failures: list, lstsqs: list) -> dict:
     return rec
 
 
+def dryrun_rank() -> dict:
+    """One rank of the [dryrun] world: entry.dryrun_multichip over the
+    world, its launches counted from 0 just before it."""
+    import torch.distributed as dist
+
+    from capital_tpu_torch import entry
+    from capital_tpu_torch.ops import counters, reset_counters
+
+    reset_counters()
+    t0 = time.perf_counter()
+    try:
+        figs, error = entry.dryrun_multichip(dist.get_world_size()), None
+    except AssertionError as exc:  # a step's bound
+        figs, error = {}, str(exc)
+    return {"rank": dist.get_rank(), "figures": figs, "error": error,
+            "launches": counters(), "seconds": time.perf_counter() - t0}
+
+
+def dryrun_phase(failures: list) -> dict:
+    """[dryrun]: dryrun_rank on one NCCL rank a card; every step's figure
+    within its bound, the steps those of entry.STEPS the world runs, the
+    kernels of DRYRUN_KERNELS launched and no DRYRUN_FALLBACKS taken."""
+    from capital_tpu_torch import entry
+    from capital_tpu_torch.parallel import launch
+
+    ranks = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    outs = launch.launch(dryrun_rank, ranks, device="cuda", timeout=600)
+    secs = time.perf_counter() - t0
+    rec = dict(outs[0])
+    hybrid = ranks >= 8 and ranks % 4 == 0
+    steps = [s for s, _, _ in entry.STEPS if s != "hybrid" or hybrid]
+    for o in outs:
+        if o["error"]:
+            failures.append(f"dryrun rank {o['rank']}: {o['error']}")
+        elif list(o["figures"]) != steps:
+            failures.append(f"dryrun rank {o['rank']}: steps "
+                            f"{list(o['figures'])} != {steps}")
+        for step, fig in o["figures"].items():
+            if not fig["held"]:
+                failures.append(f"dryrun {step}: {fig}")
+    got = rec["launches"]
+    for k in DRYRUN_KERNELS:
+        if not got[k]:
+            failures.append(f"dryrun: {k} never launched")
+    for k in DRYRUN_FALLBACKS:
+        if got[k]:
+            failures.append(f"dryrun: {k} ran {got[k]} times")
+    rec.update(ranks=ranks, world_seconds=secs, card=smi())
+    print(f"[dryrun] {json.dumps(rec)}", flush=True)
+    return rec
+
+
 def phase_launches(row: dict, phases: dict) -> dict:
     """{phase: launches of the row's kernel (for TRMM, of its case) in
     that phase's runs}, for the phases whose records carry `launches`."""
@@ -3474,9 +3591,11 @@ def main() -> int:
     cyclics = timed("cyclic", lambda: [cyclic_phase(failures)])
     drivers = timed("drivers", lambda: drivers_phase(failures))
     meshes = timed("mesh", lambda: [mesh_phase(failures, lstsqs)])
+    dryruns = timed("dryrun", lambda: [dryrun_phase(failures)])
     new_phases = {"hybrid": hybrids[0]["launches"],
                   "cyclic": cyclics[0]["launches"],
-                  "mesh": meshes[0]["launches"]}
+                  "mesh": meshes[0]["launches"],
+                  "dryrun": dryruns[0]["launches"]}
     for key, part in (("autotune", tunes), ("drivers", drivers)):
         new_phases[key] = zero_counts()
         for rec in part.values():
@@ -3496,7 +3615,8 @@ def main() -> int:
               "svd": svds, "eigh_partial": partials, "spectral": spectrals,
               "rsvd": rsvds, "pca": pcas, "als": alss, "io": ios,
               "autotune": tunes, "hybrid": hybrids, "cyclic": cyclics,
-              "drivers": drivers, "mesh": meshes, "phase_s": phase_s,
+              "drivers": drivers, "mesh": meshes, "dryrun": dryruns,
+              "phase_s": phase_s,
               "failures": failures}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

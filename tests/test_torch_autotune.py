@@ -9,8 +9,9 @@ package's, both on a one-device CPU grid and the same numpy operands:
     and message count agree to relative 1e-9;
   * the five table files: the JAX tuner's headers with the link column in
     the ICI column's place, one row a candidate;
-  * `best` is one of the candidates; `main` on the CPU; the multi-device
-    options raise.
+  * `best` is one of the candidates; `main` on the CPU; a grid shape one
+    device cannot hold raises (tests/test_torch_mesh_tune.py runs them on
+    gloo ranks).
 
 The JAX tuner records costs while tracing (jax.eval_shape; for eigh,
 while its jitted stages trace during the run), the port's while its
@@ -160,9 +161,11 @@ def test_default_space_matches_jax(tmp_path):
 
 def test_main_on_the_cpu(tmp_path, capsys, monkeypatch):
     """main on one CPU device writes the five tables and prints the best
-    candidate; the multi-device options and grid shapes raise, naming M9b;
-    one device sweeps the (square, 1, 1) grid alone; the command line
-    prints each candidate error and exits 1 when any candidate failed."""
+    candidate; a grid shape of more devices than one raises ValueError
+    (it is never moved elsewhere); one device sweeps the (square, 1, 1)
+    grid alone, as the JAX package's grid_candidates gives it; the
+    command line prints each candidate error and exits 1 when any
+    candidate failed."""
     import runpy
     import sys
     import warnings
@@ -178,14 +181,14 @@ def test_main_on_the_cpu(tmp_path, capsys, monkeypatch):
     assert (best["candidates"], best["errors"]) == (6, 0)
     for suffix in TABLES:
         assert os.path.exists(prefix + suffix), suffix
-    for argv in (["--cpu"], ["--grid", "square:1:2"],
-                 ["--grid", "square:2:1"], ["--grid", "rect:2"]):
-        with pytest.raises(NotImplementedError, match="M9b"):
+    for argv in (["--grid", "square:1:2"], ["--grid", "square:2:1"],
+                 ["--grid", "rect:2"]):
+        with pytest.raises(ValueError, match="needs"):
             tune.main(["--device", "cpu", "--n", "128"] + argv)
 
-    assert tune.grid_candidates(["cpu"]) == [("square", 1, 1)]
-    with pytest.raises(NotImplementedError, match="M9b"):
-        tune.grid_candidates(["cpu", "cpu"])
+    for p in (1, 2, 3):
+        assert tune.grid_candidates(["cpu"] * p) == [("square", 1, 1)] == \
+            jtune.grid_candidates(jax.devices("cpu")[:p])
     cands = tune.sweep_grids("cholinv", n=128, num_iter=1, devices=["cpu"],
                              space={"bc_mult": [0], "precision": ["highest"]})
     assert [c.params for c in cands] == [

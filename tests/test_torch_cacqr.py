@@ -182,6 +182,24 @@ def test_gram_1d_matches_jax(policy, kernel):
         assert torch.equal(got, got.T)
 
 
+def test_tri_gram_of_a_column_major_operand(monkeypatch):
+    """The SYRK kernel takes rows of unit column stride: the 'tri' Gram of
+    a column-major operand (LAPACK's Q, the TSQR leaf's) hands it a
+    row-major copy, with the same Gram."""
+    seen = []
+
+    def spy(a, *args, **kwargs):
+        seen.append(a.stride())
+        return torch.from_numpy(a.numpy().T @ a.numpy())
+
+    q = torch.linalg.qr(torch.from_numpy(_operand(256, 32, 5)))[0]
+    assert q.stride(-1) != 1
+    monkeypatch.setattr(cacqr, "syrk_upper", spy)
+    g = cacqr._local_gram(q, "tri")
+    assert seen == [(32, 1)]
+    np.testing.assert_allclose(g.numpy(), (q.T @ q).numpy(), atol=1e-6)
+
+
 def test_gram_1d_policy_checks():
     grid = Grid.square(device="cpu")
     a = torch.from_numpy(_operand(512, 96, 3))  # 128 does not divide 96

@@ -193,6 +193,22 @@ def test_slogdet_matches_jax_and_numpy():
     assert float(ld) == pytest.approx(float(ld_j), rel=1e-5)
 
 
+def test_library_panel_factors_a_singular_matrix_as_jax():
+    """lapack.lu factors a singular matrix with a zero pivot and no error,
+    as lax.linalg.lu does (an operand zero-padded to the grid's tiles is
+    singular: the tuner's LU sweep at n = 128 on a 2 x 2 slice)."""
+    from capital_tpu_torch.ops import lapack
+
+    a = _operand(128, 6)
+    a[:, 64:] = 0.0
+    lu_, piv, perm = lapack.lu(torch.from_numpy(a))
+    jlu_, jpiv, jperm = jax.lax.linalg.lu(jnp.asarray(a))
+    np.testing.assert_array_equal(piv.numpy(), np.asarray(jpiv))
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(jperm))
+    np.testing.assert_allclose(lu_.numpy(), np.asarray(jlu_), atol=1e-5)
+    assert not np.diag(lu_.numpy())[64:].any()
+
+
 @pytest.mark.parametrize("k", [None, 8])
 def test_solve_with_refinement(k):
     """A 1-D b gives a 1-D x; two refinement sweeps reach 1e-5."""

@@ -4,10 +4,8 @@ runs, on the flat 2 x 2 view (the JAX package's grid122, d = 2),
 spd_solve with two refinement sweeps and with a reused factor, inv,
 slogdet_spd (also on the 2 x 2 x 2 grid), solve by 'normal', 'polar' and
 'lu' (and 'lu' from bf16 factors, factor_dtype), and expm; lstsq by 'cqr2' on the rect grid and by 'tsqr' on the 1D
-grid of 8, with and without a refinement sweep; the 1-D right-hand-side
-convention of every solve on d = 2; and checks that what the port still
-runs on one device only (the tuner's grid shapes, the multi-device
-scaling sweep) refuses a world of 8 ranks.
+grid of 8, with and without a refinement sweep; and the 1-D
+right-hand-side convention of every solve on d = 2.
 
 Tolerances (tests/test_torch_linalg.py's): relative Frobenius 1e-5 to
 the JAX package's result at 'highest' (the operands are well conditioned:
@@ -210,19 +208,3 @@ def test_vector_rhs_convention_on_d2(port, grid122):
     for xx in (xt, x):
         ng = np.linalg.norm(a64.T @ (a64 @ np.asarray(xx, np.float64) - b64))
         assert ng < NORMAL_TOL * np.linalg.norm(a64.T @ b64), ng
-
-
-def test_spectral_and_apps_refuse_rank_grids(port):
-    """The spectral layer and the apps run across ranks now
-    (tests/test_torch_mesh_eigh.py, _svd.py, _apps.py); what still
-    refuses more than one device raises NotImplementedError naming its
-    ROADMAP queue M item: the tuner's grid shapes (grid_candidates,
-    sweep_grids, main --grid and --cpu) and the multi-device scaling
-    sweep (bench/scaling.py --devices, --cpu)."""
-    got = port["refusals"]
-    assert len(got) == 7
-    for name, (kind, msg) in got.items():
-        assert kind == "NotImplementedError", (name, kind, msg)
-        assert "ROADMAP queue M" in msg, msg
-        if name.startswith("bench.scaling"):
-            assert "M23b" in msg, msg

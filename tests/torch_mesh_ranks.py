@@ -820,27 +820,6 @@ def linalg_world(ops: dict) -> dict:
     out["vector"]["lstsq"] = linalg.lstsq(
         flat, torch.from_numpy(at_np), torch.from_numpy(bt_np[:, 0].copy()),
         cacqr_cfg()).numpy().copy()
-    # the port's edge: what still refuses more than one device (the
-    # tuner's grid shapes, the multi-device scaling sweep)
-    from capital_tpu_torch.autotune import tune
-    from capital_tpu_torch.bench import scaling
-
-    cpus = ["cpu"] * dist.get_world_size()
-    tune_cpu = ["--device", "cpu", "--n", "128"]
-    refusals = {
-        "autotune.tune.grid_candidates": lambda: tune.grid_candidates(cpus),
-        "autotune.tune.sweep_grids": lambda: tune.sweep_grids(
-            "cholinv", n=128, num_iter=1, devices=cpus),
-        "autotune.tune.main --grid square:2:2": lambda: tune.main(
-            tune_cpu + ["--grid", "square:2:2"]),
-        "autotune.tune.main --grid rect:2": lambda: tune.main(
-            tune_cpu + ["--grid", "rect:2"]),
-        "autotune.tune.main --cpu": lambda: tune.main(tune_cpu + ["--cpu"]),
-        "bench.scaling --devices": lambda: scaling.main(
-            ["--device", "cpu", "--devices", str(len(cpus))]),
-        "bench.scaling --cpu": lambda: scaling.main(["--device", "cpu",
-                                                     "--cpu"])}
-    out["refusals"] = {name: _catch(fn) for name, fn in refusals.items()}
     out["rank"] = {"rank": dist.get_rank()}
     return out
 
@@ -1276,4 +1255,77 @@ def apps_world(path: str) -> dict:
     out["fit_sparse"] = (u.numpy().copy(), v.numpy().copy(), float(err))
     out["rank"] = {"rank": dist.get_rank(), "v": out["fit"][1],
                    "err": out["fit"][2]}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the tuner's grid shapes and the scaling sweep on sub-grids of the world
+# ---------------------------------------------------------------------------
+
+# the space of tests/test_autotune.py::test_sweep_grids_has_grid_column
+TUNE_SPACE = {"bc_mult": [0], "base_method": ["xla"], "min_bc": [64],
+              "summa_impl": ["shard_map"]}
+TUNE_N = 128
+QR_SPACE = {"path": ["1d", "3d", "hybrid"], "num_iter": [2],
+            "gram_policy": ["allreduce", "two_stage"],
+            "base_method": ["xla"]}
+QR_M, QR_N = 1024, 64
+# main's default multi-device spaces hold hundreds of candidates a shape:
+# the world's main runs take these
+MAIN_SPACES = {"cholinv": TUNE_SPACE,
+               "lu": {"nb": [64], "summa_impl": ["shard_map"],
+                      "precision": ["highest"], "lookahead": [False]}}
+MAIN_RUNS = {"sweep": ["--alg", "cholinv"],
+             "square:1:2": ["--alg", "cholinv", "--grid", "square:1:2"],
+             "rect:2": ["--alg", "cholinv", "--grid", "rect:2"],
+             "lu sweep": ["--alg", "lu", "--grid", "sweep"]}
+SCALING_N = 256
+
+
+def _records(cands) -> list:
+    return [(c.params, c.costs, c.error, c.time_s) for c in cands]
+
+
+def tune_world(prefix: str) -> dict:
+    """sweep_grids of cacqr on the rect shape, tune.main (--cpu) with
+    each of MAIN_RUNS on MAIN_SPACES (tables at prefix + the run's name),
+    and bench.scaling --cpu of cholinv and summa, all on sub-grids of this
+    world; rank 0's results, and under "rank" the count of candidates and
+    rows every rank got back, and what launch.run_on gave a function over
+    a device list that names one card for every rank, as torchrun's NCCL
+    ranks' lists do (each rank's own cuda:LOCAL_RANK)."""
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from capital_tpu_torch.autotune import tune
+    from capital_tpu_torch.bench import scaling
+    from capital_tpu_torch.parallel import launch
+
+    out = {"main": {}, "scaling": {}}
+    got = {"rank": dist.get_rank(), "main": {}, "scaling": {}}
+    one_card = [torch.device("cuda", 0)] * dist.get_world_size()
+    got["run_on"] = launch.run_on(lambda device, x: (device, x), one_card, 7)
+    qr = tune.sweep_grids("cacqr", n=QR_N, m=QR_M, shapes=[("rect", 2, 2)],
+                          space=QR_SPACE, num_iter=1)
+    out["cacqr"] = _records(qr)
+    got["cacqr"] = len(qr)
+
+    def small(fn, space):
+        return lambda grid, a, sp=None, num_iter=2: fn(grid, a, sp or space,
+                                                       num_iter=num_iter)
+
+    sweeps = {alg: small(tune._SWEEPS[alg], sp)
+              for alg, sp in MAIN_SPACES.items()}
+    with mock.patch.dict(tune._SWEEPS, sweeps):
+        for name, argv in MAIN_RUNS.items():
+            cands = tune.main(["--cpu", "--n", str(TUNE_N), "--num-iter",
+                               "1", "--prefix", f"{prefix}{name}"] + argv)
+            out["main"][name] = _records(cands)
+            got["main"][name] = len(cands)
+    for alg in ("cholinv", "summa"):
+        rows = scaling.main(["--cpu", "--n", str(SCALING_N), "--alg", alg])
+        out["scaling"][alg] = rows
+        got["scaling"][alg] = len(rows)
+    out["rank"] = got
     return out
