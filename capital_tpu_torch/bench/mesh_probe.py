@@ -1,8 +1,9 @@
-"""Which collectives the SUMMA engine issues a backend takes, on which
-device: a (c, d, d) DeviceMesh over the ranks, then on it
-all_gather_into_tensor ('x'), all_reduce ('z'), reduce_scatter_tensor
-('y') and batch_isend_irecv between partner ranks, each checked against
-its expected values. One JSON line a rank.
+"""Which of the collectives the SUMMA engine and darray's windows call
+a backend takes, on which device: a (c, d, d) DeviceMesh over the ranks,
+then on it all_gather_into_tensor ('x'), all_reduce ('z'),
+reduce_scatter_tensor ('y'), batch_isend_irecv between partner ranks
+and an uneven all_to_all_single ('x'), each checked against its
+expected values. One JSON line a rank.
 
     python -m capital_tpu_torch.bench.mesh_probe      # NCCL, a rank a card
     python -m capital_tpu_torch.bench.mesh_probe --ranks 8 \
@@ -81,10 +82,27 @@ def probe(shape: tuple) -> dict:
             r.wait()
         return bool((got == float(peer)).all())
 
+    def exchange():
+        # uneven: group rank g sends i + g + 1 rows to group rank i, each
+        # row holding (sender, receiver); darray.window's collective
+        k = dist.get_world_size(gx)
+        g = dist.get_group_rank(gx, rank)
+        send = [i + g + 1 for i in range(k)]
+        recv = [g + j + 1 for j in range(k)]
+        src = torch.cat([torch.tensor([[float(g), float(i)]], device=dev)
+                         .expand(n, 2) for i, n in enumerate(send)])
+        dst = torch.empty((sum(recv), 2), device=dev)
+        dist.all_to_all_single(dst, src, output_split_sizes=recv,
+                               input_split_sizes=send, group=gx)
+        want = torch.cat([torch.tensor([[float(j), float(g)]]).expand(n, 2)
+                          for j, n in enumerate(recv)])
+        return bool(torch.equal(dst.cpu(), want))
+
     for name, fn in (("all_gather_into_tensor", gather),
                      ("all_reduce", reduce),
                      ("reduce_scatter_tensor", scatter),
-                     ("batch_isend_irecv", p2p)):
+                     ("batch_isend_irecv", p2p),
+                     ("all_to_all_single", exchange)):
         _check(name, fn, out)
         if dev.type == "cuda":
             torch.cuda.synchronize()
@@ -115,7 +133,8 @@ def main(argv=None) -> int:
                                   if k in ("mesh", "all_gather_into_tensor",
                                            "all_reduce",
                                            "reduce_scatter_tensor",
-                                           "batch_isend_irecv"))]
+                                           "batch_isend_irecv",
+                                           "all_to_all_single"))]
     return 1 if bad else 0
 
 

@@ -23,6 +23,7 @@ JAX package does below its TPU threshold of 2048.
 
 from __future__ import annotations
 
+import math
 import os
 
 import torch
@@ -36,6 +37,18 @@ BF16_TRI_MIN_N = 1024
 def _dot(a, b):
     """a @ b accumulated in f32 (f64 for f64), returned in a's dtype."""
     return _pdot(a, b).to(a.dtype)
+
+
+def _exact_scale(alpha) -> bool:
+    """alpha is 1, -1 or another power of two: scaling before or after the
+    rounding to the output dtype gives the same values."""
+    return alpha != 0 and math.frexp(abs(alpha))[0] == 0.5
+
+
+def _scaled(out, alpha):
+    """alpha * out as the JAX package computes it: alpha rounded to out's
+    dtype (a weakly typed scalar), the product rounded once."""
+    return out * torch.tensor(alpha, dtype=out.dtype)
 
 
 def _on_gpu(x, platform) -> bool:
@@ -59,7 +72,9 @@ def trmm(a, b, *, side="L", uplo="U", trans_a=False, diag="N", alpha=1.0,
          method="auto", platform=None, a_window=None, b_window=None):
     """B = alpha * op(tri(A)) B (side=L) or alpha * B op(tri(A)) (side=R).
     tri() masks A to its `uplo` triangle; diag='U' forces a unit diagonal.
-    a_window must be square (A is the triangular operand)."""
+    a_window must be square (A is the triangular operand). alpha scales
+    the product after its rounding to B's dtype, as in the JAX package;
+    the kernel takes a power of two itself (the same values)."""
     if a_window is not None and a_window[2] != a_window[3]:
         raise ValueError(f"triangular a_window must be square: {a_window}")
     a_n = a_window[2] if a_window is not None else a.shape[0]
@@ -74,8 +89,11 @@ def trmm(a, b, *, side="L", uplo="U", trans_a=False, diag="N", alpha=1.0,
         from capital_tpu_torch.ops.cuda_trmm import trmm_upper
 
         uw = (a_window[0], a_window[1], a_window[2]) if a_window else None
-        return trmm_upper(a, b, side=side, trans_a=trans_a, alpha=alpha,
-                          u_window=uw, b_window=b_window)
+        fused = _exact_scale(alpha)  # else scaled after the rounding
+        out = trmm_upper(a, b, side=side, trans_a=trans_a,
+                         alpha=alpha if fused else 1.0, u_window=uw,
+                         b_window=b_window)
+        return out if fused else _scaled(out, alpha)
     trmm.dot_calls += 1
     a = _slice_window(a, a_window)
     b = _slice_window(b, b_window)
@@ -87,7 +105,7 @@ def trmm(a, b, *, side="L", uplo="U", trans_a=False, diag="N", alpha=1.0,
         t = t.T
     out = _dot(t, b) if side == "L" else _dot(b, t)
     if alpha != 1.0:
-        out = alpha * out
+        out = _scaled(out, alpha)
     return out
 
 

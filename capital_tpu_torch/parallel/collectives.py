@@ -9,6 +9,10 @@ on the grid's process groups (grid.Mesh.group):
     lax.ppermute(x, axes, pairs)                    -> ppermute
     lax.axis_index(axes)                            -> Mesh.axis_index
 
+and `exchange`, an uneven all-to-all (dist.all_to_all_single), which
+moves the pieces of a re-blocking (darray.window, set_window) where the
+JAX package slices inside its jitted program.
+
 `axes` is an axis name, a tuple of them (a joint axis, flat index
 row-major, first axis major) or None (no axis: the identity). A process
 group numbers its ranks in ascending global order, which a permuted
@@ -20,6 +24,8 @@ gives the result: what a later product does not need yet overlaps it.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
@@ -159,7 +165,9 @@ def ppermute(x: torch.Tensor, mesh: Mesh, axes, pairs) -> torch.Tensor:
     members = mesh.members(axes)
     dst = [d for s, d in pairs if s == me]
     src = [s for s, d in pairs if d == me]
-    out = torch.zeros_like(x) if not src else torch.empty_like(x)
+    # contiguous whatever x's strides (irecv takes no strided buffer)
+    out = (torch.zeros if not src else torch.empty)(
+        x.shape, dtype=x.dtype, device=x.device)
     x = x.contiguous()
     ops = []
     for d in dst:
@@ -174,3 +182,39 @@ def ppermute(x: torch.Tensor, mesh: Mesh, axes, pairs) -> torch.Tensor:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     return out
+
+
+def exchange(x: torch.Tensor, mesh: Mesh, axes, send, recv,
+             dim: int = 0) -> torch.Tensor:
+    """An uneven all-to-all over `axes`: x cut along dim into pieces of
+    send[j] (j in coordinate order), the j-th sent to the member at
+    coordinate j; returns the pieces received, recv[j] long from the
+    member at coordinate j, concatenated along dim in coordinate order.
+    send[j] is what member j expects in its recv; the piece a member
+    keeps (send[me] == recv[me]) is copied locally by the collective.
+    The result is contiguous. A one-member axis still makes the call (its
+    result is x's copy); darray keeps such dimensions local."""
+    axes = _axes(axes)
+    if not axes:
+        return x
+    k = mesh.axis_size(axes)
+    if len(send) != k or len(recv) != k or sum(send) != x.shape[dim]:
+        raise ValueError(f"exchange: sizes {send} / {recv} do not fit "
+                         f"{tuple(x.shape)} along {dim} over {axes} ({k})")
+    order = _order(mesh, axes) or list(range(k))  # coordinate -> group rank
+    by_group = sorted(range(k), key=lambda j: order[j])  # group rank -> coord
+    per = math.prod(x.shape[:dim] + x.shape[dim + 1:])  # elements an index
+    pieces = x.split(send, dim)
+    src = torch.cat([pieces[j].contiguous().reshape(-1) for j in by_group])
+    out = torch.empty(sum(recv) * per, dtype=x.dtype, device=x.device)
+    out_sizes = [recv[j] * per for j in by_group]
+    dist.all_to_all_single(out, src, output_split_sizes=out_sizes,
+                           input_split_sizes=[send[j] * per
+                                              for j in by_group],
+                           group=mesh.group(axes))
+    got, shape = out.split(out_sizes), list(x.shape)
+    parts = []
+    for j in range(k):
+        shape[dim] = recv[j]
+        parts.append(got[order[j]].view(shape))
+    return torch.cat(parts, dim)

@@ -11,12 +11,13 @@ replicates the array along it. Plain tensors stand for replicated arrays
 
 A container of the port's own rather than torch's DTensor: cholinv's
 recursion reads and writes windows of its two workspaces at offsets that
-cross block boundaries, which here are explicit gathers and local writes
-(`window`, `set_window`, LU's row take `take_rows`) with no dependence on
-DTensor's slicing rules. Elementwise arithmetic (`+`, `-` and unary `-`
-of two DArrays of one shape, spec and mesh; `*` and `/` by a scalar;
-`.to(dtype)`) works on the local blocks; a spec mismatch raises
-ValueError, nothing is redistributed implicitly.
+cross block boundaries, which here are explicit moves and local writes
+(`window`, `set_window`: one uneven all-to-all a split dimension, each
+rank receiving only its block of the window; LU's row take `take_rows`)
+with no dependence on DTensor's slicing rules. Elementwise arithmetic
+(`+`, `-` and unary `-` of two DArrays of one shape, spec and mesh; `*`
+and `/` by a scalar; `.to(dtype)`) works on the local blocks; a spec
+mismatch raises ValueError, nothing is redistributed implicitly.
 """
 
 from __future__ import annotations
@@ -209,36 +210,110 @@ def reshard(x: DArray, spec) -> DArray:
     return DArray(local, x.shape, spec, x.mesh)
 
 
+def _cut(a: tuple, b: tuple) -> tuple:
+    """The intersection of two [lo, hi) ranges; when it is empty, an empty
+    range at a point of a (a tensor covering a narrows to it)."""
+    lo = min(max(a[0], b[0]), a[1])
+    return lo, max(lo, min(a[1], b[1]))
+
+
+def _move(local: torch.Tensor, x: DArray, i: int, span: tuple,
+          to_window: bool) -> torch.Tensor:
+    """Re-block dimension i of the window span = [o, o + n) of x over x's
+    axes between x's blocks (each cut to the window) and the window's own
+    n/k blocks: to_window, local holds this rank's block of x inside the
+    window and the result is its block of the window; else the reverse.
+    Each member sends each peer the intersection of what it holds and
+    what the peer wants (one uneven all-to-all). The members of the axes'
+    group hold the same extent along the other dimension: when it is
+    empty, nothing is moved."""
+    axes = x.axes(i)
+    k, me = x.mesh.axis_size(axes), x.mesh.axis_index(axes)
+    bx, b, o = x.shape[i] // k, (span[1] - span[0]) // k, span[0]
+    blocks = [_cut((t * bx, (t + 1) * bx), span) for t in range(k)]
+    wins = [(o + t * b, o + (t + 1) * b) for t in range(k)]
+    held, want = (blocks, wins) if to_window else (wins, blocks)
+    shape = list(local.shape)
+    shape[i] = want[me][1] - want[me][0]
+    if 0 in local.shape[:i] + local.shape[i + 1:]:
+        return local.new_empty(shape)
+    send = [_cut(held[me], r) for r in want]
+    sizes = [hi - lo for lo, hi in send]
+    first = next((lo for lo, hi in send if hi > lo), held[me][0])
+    part = local.narrow(i, first - held[me][0], sum(sizes))
+    recv = [_cut(r, want[me]) for r in held]
+    return coll.exchange(part, x.mesh, axes, sizes,
+                         [hi - lo for lo, hi in recv], i)
+
+
 def window(x: DArray, win) -> DArray:
-    """The (r0, c0, h, w) window of a 2-D x as a DArray of x's spec: each
-    split dimension gathered over its axes and cut to this rank's block of
-    the window."""
+    """The (r0, c0, h, w) window of a 2-D x as a DArray of x's spec. Each
+    dimension is first cut locally to this rank's block of x inside the
+    window; then, along each split dimension (rows first), each rank sends
+    each peer of its axes the part of that which falls in the peer's
+    block of the window (an uneven all-to-all), so a rank receives only
+    what its block of the window holds."""
     if win is None:
         return x
     r0, c0, h, w = win
+    spans = ((r0, r0 + h), (c0, c0 + w))
+    if min(r0, c0) < 0 or r0 + h > x.shape[0] or c0 + w > x.shape[1]:
+        raise ValueError(f"window {win} outside a {x.shape} array")
     local = x.local
-    for i, (o, n) in enumerate(((r0, h), (c0, w))):
-        axes = x.axes(i)
-        start, size = _block(x.mesh, n, axes)
-        if x.mesh.axis_size(axes) > 1:
-            local = coll.all_gather(local, x.mesh, axes, dim=i)
-        local = local.narrow(i, o + start, size)
+    for i in range(2):
+        _block(x.mesh, (h, w)[i], x.axes(i))  # a window that does not split
+        start, size = x.block(i)
+        lo, hi = _cut((start, start + size), spans[i])
+        local = local.narrow(i, lo - start, hi - lo)
+    for i in range(2):
+        if x.mesh.axis_size(x.axes(i)) > 1:
+            local = _move(local, x, i, spans[i], to_window=True)
     return DArray(local, (h, w), x.spec, x.mesh)
 
 
+def _entry_for(x: DArray, v: DArray, i: int):
+    """The spec entry set_window lays v's dimension i out as: v's own
+    when it is whole (its axes have one member) or split as x's; x's when
+    v's axes are a prefix of x's (reshard cuts locally); else None
+    (gathered over v's axes)."""
+    va, xa = v.axes(i), x.axes(i)
+    if x.mesh.axis_size(va) == 1 or va == xa:
+        return v.spec[i]
+    if xa[:len(va)] == va and not v.shape[i] % x.mesh.axis_size(xa):
+        return x.spec[i]
+    return None
+
+
 def set_window(x: DArray, at, v) -> None:
-    """Write v (a DArray of x's spec, or a replicated tensor) into x at
-    (r0, c0), in place: v gathered whole, each rank writes the part that
-    falls in its block."""
+    """Write v into x at (r0, c0), in place; each rank writes the part of
+    v that falls in its block. v is a replicated tensor (cut locally) or a
+    DArray: a dimension v holds whole is cut locally; one split as x's is
+    moved to x's blocks by the inverse of window's exchange; one split
+    over a prefix of x's axes is cut to x's layout locally first; one
+    split otherwise is gathered over its axes (_entry_for)."""
     r0, c0 = at
-    full = to_global(v)
-    h, w = full.shape
     (br, bh), (bc, bw) = x.block(0), x.block(1)
-    lo_r, hi_r = max(r0, br), min(r0 + h, br + bh)
-    lo_c, hi_c = max(c0, bc), min(c0 + w, bc + bw)
+    mine = ((br, br + bh), (bc, bc + bw))
+    if isinstance(v, DArray):
+        if v.mesh is not x.mesh:
+            v = as_darray(v, x.mesh)
+        v = reshard(v, P(*(_entry_for(x, v, i) for i in range(2))))
+        split = [x.mesh.axis_size(v.axes(i)) > 1 for i in range(2)]
+        local = v.local
+    else:
+        split, local = [False, False], v
+    h, w = v.shape
+    spans = ((r0, r0 + h), (c0, c0 + w))
+    for i in range(2):  # the dimensions held whole: cut locally
+        if not split[i]:
+            lo, hi = _cut(spans[i], mine[i])
+            local = local.narrow(i, lo - spans[i][0], hi - lo)
+    for i in range(2):
+        if split[i]:
+            local = _move(local, x, i, spans[i], to_window=False)
+    (lo_r, hi_r), (lo_c, hi_c) = (_cut(mine[i], spans[i]) for i in range(2))
     if lo_r < hi_r and lo_c < hi_c:
-        x.local[lo_r - br:hi_r - br, lo_c - bc:hi_c - bc].copy_(
-            full[lo_r - r0:hi_r - r0, lo_c - c0:hi_c - c0])
+        x.local[lo_r - br:hi_r - br, lo_c - bc:hi_c - bc].copy_(local)
 
 
 def take_rows(x: DArray, win, perm: torch.Tensor) -> DArray:

@@ -165,7 +165,9 @@
    leaf or library panel.
    [mesh] the multi-device substrate over NCCL, one rank a card
    (parallel/launch.py; one rank on a one-card machine), grids from the
-   world's constructors: cholinv.factor at n = 32768 'high', base case
+   world's constructors: collectives.exchange (the uneven all-to-all of
+   darray's windows) once over the world, the identity on one rank;
+   cholinv.factor at n = 32768 'high', base case
    512, with each base_policy and summa_impl, bitwise equal to the
    one-device factor of the same operand (on one rank) and 189 / 63 / 64
    TRMM / SYRK / leaf launches each, residuals below 1e-5; cacqr.factor_1d
@@ -2740,6 +2742,7 @@ def mesh_rank(lstsq_library: dict, refs: dict) -> dict:
     local = Grid.square(device=dev)
     out = {"rank": dist.get_rank(), "world": world,
            "backend": dist.get_backend(), "launches": zero_counts()}
+    out["exchange"] = mesh_exchange(fails, one)
 
     def same(what, got, want, tol=TOL, bitwise_on_one=False):
         """got against want: within tol (relative Frobenius), and bit for
@@ -2894,6 +2897,35 @@ def mesh_rank(lstsq_library: dict, refs: dict) -> dict:
     mesh_spectral(out, fails, local, refs)
     out["failures"] = fails
     return out
+
+
+def mesh_exchange(fails: list, one: bool) -> dict:
+    """collectives.exchange, the uneven all-to-all darray's windows move
+    their blocks with, once over every rank of the world: rank j sends
+    rank i (i + j + 1) * 64 rows of (j, i). On one rank it must return
+    its operand (a group of one; the NCCL call is made all the same)."""
+    from capital_tpu_torch import Grid
+    from capital_tpu_torch.parallel import collectives as coll
+    from capital_tpu_torch.parallel.launch import world_device
+
+    dev, mesh, axes = world_device(), Grid.square(c=1).mesh, ("y", "x")
+    k, me = mesh.axis_size(axes), mesh.axis_index(axes)
+    send = [(i + me + 1) * 64 for i in range(k)]
+    recv = [(me + j + 1) * 64 for j in range(k)]
+
+    def rows(sizes, pair):
+        return torch.cat([torch.tensor([pair(i)], dtype=torch.float32,
+                                       device=dev).expand(n, 2)
+                          for i, n in enumerate(sizes)])
+
+    x = rows(send, lambda i: (me, i))
+    got = coll.exchange(x, mesh, axes, send, recv)
+    torch.cuda.synchronize()
+    ok = bool(torch.equal(got, rows(recv, lambda j: (j, me)))
+              and (not one or torch.equal(got, x)))
+    if not ok:
+        fails.append(f"mesh exchange over {k} rank(s): wrong values")
+    return {"ranks": k, "rows": int(got.shape[0]), "ok": ok}
 
 
 def mesh_solvers(out: dict, fails: list, same, counted, local,

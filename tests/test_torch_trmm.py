@@ -7,13 +7,17 @@ chip_smoke.py. Tolerances are the tile_dot ones (tests/test_torch_dot.py):
 relative Frobenius 1e-6 at highest/default, 2e-5 at high.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from capital_tpu.ops import blas as jblas
+from capital_tpu.ops import pallas_trmm
 from capital_tpu.ops.pallas_trmm import trmm_upper as trmm_jax
-from capital_tpu_torch.ops import cuda_trmm
+from capital_tpu_torch.ops import blas, cuda_trmm
 
 torch.set_num_threads(1)
 
@@ -71,15 +75,36 @@ def test_trmm_windows_match_jax_kernel(side, trans_a):
     assert _rel(got.numpy(), want) < TOL["highest"]
 
 
-def test_trmm_alpha_and_ragged_shape():
+@pytest.mark.parametrize("dtype,alpha", [("float32", -2.0),
+                                         ("bfloat16", 0.3)])
+def test_trmm_alpha_and_ragged_shape(dtype, alpha, monkeypatch):
     """alpha scales the product; a shape that is not a multiple of the tile
-    runs the same schedule with a short last tile."""
+    runs the same schedule with a short last tile. A power of two is
+    fused into the kernel; any other alpha scales the product after its
+    rounding to B's dtype, as the JAX package's blas.trmm does (alpha
+    rounded to bf16, the product rounded once more)."""
     n, m = 200, 72
     u, b = _data(2, (n, n), (n, m))
-    got = cuda_trmm.trmm_upper(torch.from_numpy(u), torch.from_numpy(b),
-                               alpha=-2.0)
-    want = -2.0 * np.triu(u).astype(np.float64) @ b
-    assert _rel(got.numpy(), want) < 1e-6
+    tu, tb = (torch.from_numpy(x).to(getattr(torch, dtype)) for x in (u, b))
+    got = blas.trmm(tu, tb, alpha=alpha, method="tri")
+    assert got.dtype == tb.dtype
+    if dtype == "float32":
+        want = alpha * np.triu(u).astype(np.float64) @ b
+        assert _rel(got.numpy(), want) < 1e-6
+        return
+    one = blas.trmm(tu, tb, alpha=1.0, method="tri")
+    reference_way = np.asarray(alpha * jnp.asarray(one.float().numpy(),
+                                                   jnp.bfloat16), np.float32)
+    assert np.array_equal(got.float().numpy(), reference_way)
+    # the kernel's own order (alpha before the rounding) differs here
+    fused = cuda_trmm.trmm_upper(tu, tb, alpha=alpha)
+    assert not torch.equal(fused, got)
+    monkeypatch.setattr(pallas_trmm, "trmm_upper", functools.partial(
+        pallas_trmm.trmm_upper, interpret=True, t=128, mc=128))
+    want = jblas.trmm(jnp.asarray(u, jnp.bfloat16),
+                      jnp.asarray(b, jnp.bfloat16), alpha=alpha,
+                      method="tri")
+    assert _rel(got.float().numpy(), np.asarray(want, np.float32)) < 1e-2
 
 
 def test_trmm_bf16_one_pass():

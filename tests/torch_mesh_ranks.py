@@ -1329,3 +1329,349 @@ def tune_world(prefix: str) -> dict:
         got["scaling"][alg] = len(rows)
     out["rank"] = got
     return out
+
+
+# ---------------------------------------------------------------------------
+# communication volume: the bytes a rank receives through collectives.py,
+# and darray's windows against the gather-then-narrow functions they
+# replaced
+# ---------------------------------------------------------------------------
+
+class Volume:
+    """Bytes this rank receives, by the collective that moved them:
+    all_gather (k - 1) x the input, all_reduce the tensor, reduce_scatter
+    (k - 1) / k x the input, ppermute the tensors received, all_to_all
+    the pieces from other members."""
+
+    def __init__(self):
+        self.by = dict.fromkeys(("all_gather", "all_reduce",
+                                 "reduce_scatter", "ppermute",
+                                 "all_to_all"), 0)
+
+    @property
+    def bytes(self) -> int:
+        return sum(self.by.values())
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+class _CountingDist:
+    """torch.distributed as collectives.py sees it, with the calls that
+    move data counted into a Volume."""
+
+    def __init__(self, vol: Volume):
+        import torch.distributed as dist
+
+        self._dist, self._vol = dist, vol
+
+    def __getattr__(self, name):
+        return getattr(self._dist, name)
+
+    def all_reduce(self, t, *args, **kw):
+        self._vol.by["all_reduce"] += _nbytes(t)
+        return self._dist.all_reduce(t, *args, **kw)
+
+    def batch_isend_irecv(self, ops):
+        self._vol.by["ppermute"] += sum(_nbytes(op.tensor) for op in ops
+                                        if op.op is self._dist.irecv)
+        return self._dist.batch_isend_irecv(ops)
+
+    def all_to_all_single(self, out, src, output_split_sizes=None,
+                          input_split_sizes=None, group=None, **kw):
+        k = self._dist.get_world_size(group)
+        sizes = output_split_sizes or [out.numel() // k] * k
+        me = self._dist.get_rank(group)
+        self._vol.by["all_to_all"] += (sum(sizes) - sizes[me]) * \
+            out.element_size()
+        return self._dist.all_to_all_single(
+            out, src, output_split_sizes=output_split_sizes,
+            input_split_sizes=input_split_sizes, group=group, **kw)
+
+
+@contextlib.contextmanager
+def counting():
+    """A Volume that counts every collective collectives.py makes on this
+    rank while the context is open."""
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from capital_tpu_torch.parallel import collectives as coll
+
+    vol = Volume()
+    gather, scatter = coll._ALL_GATHER, coll._REDUCE_SCATTER
+
+    def all_gather(buf, x, group=None, **kw):
+        vol.by["all_gather"] += (dist.get_world_size(group) - 1) * _nbytes(x)
+        return gather(buf, x, group=group, **kw)
+
+    def reduce_scatter(out, src, group=None, **kw):
+        k = dist.get_world_size(group)
+        vol.by["reduce_scatter"] += (k - 1) * _nbytes(src) // k
+        return scatter(out, src, group=group, **kw)
+
+    with mock.patch.object(coll, "dist", _CountingDist(vol)), \
+            mock.patch.object(coll, "_ALL_GATHER", all_gather), \
+            mock.patch.object(coll, "_REDUCE_SCATTER", reduce_scatter):
+        yield vol
+
+
+def gathered_window(x, win):
+    """darray.window as it was: each split dimension gathered whole over
+    its axes, then cut to this rank's block of the window."""
+    from capital_tpu_torch.parallel import collectives as coll
+    from capital_tpu_torch.parallel import darray
+
+    if win is None:
+        return x
+    r0, c0, h, w = win
+    local = x.local
+    for i, (o, n) in enumerate(((r0, h), (c0, w))):
+        axes = x.axes(i)
+        start, size = darray._block(x.mesh, n, axes)
+        if x.mesh.axis_size(axes) > 1:
+            local = coll.all_gather(local, x.mesh, axes, dim=i)
+        local = local.narrow(i, o + start, size)
+    return darray.DArray(local, (h, w), x.spec, x.mesh)
+
+
+def gathered_set_window(x, at, v):
+    """darray.set_window as it was: v gathered whole, each rank writing
+    the part that falls in its block."""
+    from capital_tpu_torch.parallel import darray
+
+    r0, c0 = at
+    full = darray.to_global(v)
+    h, w = full.shape
+    (br, bh), (bc, bw) = x.block(0), x.block(1)
+    lo_r, hi_r = max(r0, br), min(r0 + h, br + bh)
+    lo_c, hi_c = max(c0, bc), min(c0 + w, bc + bw)
+    if lo_r < hi_r and lo_c < hi_c:
+        x.local[lo_r - br:hi_r - br, lo_c - bc:hi_c - bc].copy_(
+            full[lo_r - r0:hi_r - r0, lo_c - c0:hi_c - c0])
+
+
+def gathered():
+    """darray's window and set_window replaced by the gathering ones
+    (take_rows reads window through the module)."""
+    from unittest import mock
+
+    from capital_tpu_torch.parallel import darray
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(darray, "window", gathered_window))
+    stack.enter_context(mock.patch.object(darray, "set_window",
+                                          gathered_set_window))
+    return stack
+
+
+def ppermute_empty_like(x, mesh, axes, pairs):
+    """collectives.ppermute as it was: its receive buffer empty_like(x),
+    which keeps a transposed x's strides. The receives are posted before
+    the sends here, so that gloo's refusal leaves no send pending."""
+    import torch.distributed as dist
+
+    from capital_tpu_torch.parallel.collectives import _axes
+
+    axes = _axes(axes)
+    me = mesh.axis_index(axes)
+    members = mesh.members(axes)
+    out = torch.empty_like(x)
+    x = x.contiguous()
+    ops = [dist.P2POp(dist.irecv, out, members[s]) for s, d in pairs
+           if d == me and s != me]
+    ops += [dist.P2POp(dist.isend, x, members[d]) for s, d in pairs
+            if s == me and d != me]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+VOL_N = 64
+# (name, grid layout, spec): the 2 x 2 slice (z replicated), blocks over
+# all three axes, rows over all eight ranks, a permuted rank table, and
+# specs that split one dimension or take the axes out of order
+VOL_SPECS = [("2x2", 0, ("y", "x")), ("2x2x2", 0, (("z", "y"), "x")),
+             ("rows8", 0, (("z", "y", "x"), None)),
+             ("2x2x2 layout2", 2, (("z", "y"), "x")),
+             ("cols", 0, (None, "y")), ("xy", 1, ("x", ("z", "y")))]
+# (r0, c0, h, w) of a 64 x 64 array: whole, interior, across block edges,
+# inside one block, touching the first and the last row and column
+VOL_WINDOWS = [(0, 0, 64, 64), (16, 8, 32, 48), (8, 4, 48, 40),
+               (34, 36, 8, 8), (0, 0, 16, 24), (48, 40, 16, 24)]
+# set_window's v of another spec than x's (the v's spec, per x spec)
+VOL_OTHER = [(None, None), (("z", "y", "x"), None), (None, "x"),
+             ("x", "y")]
+# (case, grid, n): cholinv Config(min_bc=128, base_method='xla',
+# shard_map) on spd(n, 13), LU Config(nb=128) on general(n, 1)
+VOL_RUNS = [("cholinv", "2x2", 1024), ("cholinv", "2x2", 2048),
+            ("cholinv", "2x2x2", 1024), ("cholinv", "2x2x2", 2048),
+            ("lu", "2x2", 1024), ("lu", "2x2", 2048)]
+
+
+def volume_operands() -> dict:
+    ops = {}
+    for alg, _, n in VOL_RUNS:
+        key = f"{alg}{n}"
+        if key not in ops:
+            ops[key] = spd(n, 13) if alg == "cholinv" else general(n, 1)
+    return ops
+
+
+def _window_cases(out: dict, fails: list, me: int) -> None:
+    """window, set_window and take_rows on every spec and window against
+    the gathering functions: bitwise, and window within its byte bound."""
+    from capital_tpu_torch import Grid
+    from capital_tpu_torch.grid import P
+    from capital_tpu_torch.parallel import darray
+
+    t = torch.arange(VOL_N * VOL_N, dtype=torch.float32).reshape(VOL_N,
+                                                                  VOL_N)
+    u = -t - 0.5
+    gen = torch.Generator().manual_seed(5)
+    rows, callers = [], {}
+    for name, layout, spec in VOL_SPECS:
+        mesh = Grid.square(c=2, d=2, layout=layout).mesh
+        x = darray.distribute(t, mesh, spec)
+        k0, k1 = (mesh.axis_size(x.axes(i)) for i in range(2))
+        for win in VOL_WINDOWS:
+            r0, c0, h, w = win
+            tag = f"{name} {win}"
+            with counting() as vol:
+                got = darray.window(x, win)
+            with counting() as old:
+                want = gathered_window(x, win)
+            bound = x.local.element_size() * (h // k0) * (w + w // k1)
+            if not (torch.equal(got.local, want.local)
+                    and got.shape == want.shape
+                    and tuple(got.spec) == tuple(want.spec)):
+                fails.append(f"window {tag}: not bitwise")
+            if vol.bytes > bound:
+                fails.append(f"window {tag}: {vol.bytes} B > {bound}")
+            rows.append(("window", name, win, vol.bytes, old.bytes, bound))
+            # take_rows over the same window
+            perm = torch.randperm(h, generator=gen)
+            with counting() as vol:
+                got = darray.take_rows(x, win, perm)
+            with counting() as old, gathered():
+                want = darray.take_rows(x, win, perm)
+            if not torch.equal(got.local, want.local):
+                fails.append(f"take_rows {tag}: not bitwise")
+            rows.append(("take_rows", name, win, vol.bytes, old.bytes, None))
+            # set_window: v of x's spec, replicated, and of other specs
+            vs = {"same": darray.window(darray.distribute(u, mesh, spec),
+                                        win),
+                  "tensor": u[r0:r0 + h, c0:c0 + w].clone()}
+            for other in VOL_OTHER:
+                vspec = darray.fit(mesh, (h, w), P(*other))
+                if tuple(vspec) != tuple(x.spec):
+                    vs[str(other)] = darray.distribute(
+                        u[r0:r0 + h, c0:c0 + w], mesh, vspec)
+            for vname, v in vs.items():
+                a = darray.distribute(t, mesh, spec)
+                a = a.with_local(a.local.clone())
+                b = a.with_local(a.local.clone())
+                with counting() as vol:
+                    darray.set_window(a, (r0, c0), v)
+                with counting() as old:
+                    gathered_set_window(b, (r0, c0), v)
+                if not torch.equal(a.local, b.local):
+                    fails.append(f"set_window {tag} v={vname}: not bitwise")
+                if vol.bytes > old.bytes:
+                    fails.append(f"set_window {tag} v={vname}: {vol.bytes}"
+                                 f" B > the gathering {old.bytes}")
+                rows.append((f"set_window v={vname}", name, win, vol.bytes,
+                             old.bytes, None))
+    out["windows"] = rows if me == 0 else None
+
+
+def _ppermute_case(out: dict, fails: list) -> None:
+    """ppermute of a transposed (non-contiguous) operand between the two
+    members of 'x': the empty_like buffer fails, the contiguous one
+    passes."""
+    import torch.distributed as dist
+
+    from capital_tpu_torch import Grid
+    from capital_tpu_torch.parallel import collectives as coll
+
+    mesh = Grid.square(c=2, d=2).mesh
+    x = torch.arange(24, dtype=torch.float32).reshape(4, 6) + \
+        100 * dist.get_rank()
+    partner = mesh.members(("x",))[1 - mesh.axis_index(("x",))]
+    want = (torch.arange(24, dtype=torch.float32).reshape(4, 6)
+            + 100 * partner).T
+    try:
+        ppermute_empty_like(x.T, mesh, "x", [(0, 1), (1, 0)])
+        before = "ok"
+    except RuntimeError as exc:
+        before = str(exc)
+    got = coll.ppermute(x.T, mesh, "x", [(0, 1), (1, 0)])
+    out["ppermute"] = {"before": before, "equal": bool(torch.equal(got, want)),
+                       "contiguous": got.is_contiguous()}
+
+
+def _run(alg: str, grid, a):
+    from capital_tpu_torch.algs import cholinv, lu
+
+    if alg == "cholinv":
+        return cholinv.factor(grid, a, chol_cfg(min_bc=128))
+    w, perm, sign = lu.factor(grid, a, lu.Config(nb=128))
+    return w, perm, torch.tensor(float(sign))
+
+
+def _block_of(x):
+    return getattr(x, "local", x)
+
+
+def volume_world(path: str) -> dict:
+    """The window cases, the ppermute case, and each of VOL_RUNS twice:
+    with darray's windows and with the gathering ones patched in. Rank
+    0's bytes and results, each rank's failures, bitwise agreements and
+    the callers of set_window with a v of another spec than x's."""
+    import inspect
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from capital_tpu_torch import interop, tracing
+    from capital_tpu_torch.parallel import darray
+
+    ops = unstash(path)
+    me = dist.get_rank()
+    out, fails = {}, []
+    _window_cases(out, fails, me)
+    _ppermute_case(out, fails)
+    g = _grids()["222"]
+    grids = {"2x2": _flat(g), "2x2x2": g}
+    other_spec = set()
+    real_set = darray.set_window
+
+    def watched(x, at, v):
+        if isinstance(v, darray.DArray) and tuple(v.spec) != tuple(x.spec):
+            caller = inspect.stack()[1]
+            other_spec.add(f"{os.path.basename(caller.filename)}:"
+                           f"{caller.function}")
+        return real_set(x, at, v)
+
+    runs, same = {}, {}
+    for alg, gname, n in VOL_RUNS:
+        grid, key = grids[gname], f"{alg} {gname} {n}"
+        a = interop.dist_from_numpy(ops[f"{alg}{n}"], grid)
+        with counting() as vol, tracing.trace() as t, \
+                mock.patch.object(darray, "set_window", watched):
+            got = _run(alg, grid, a)
+        with counting() as old, tracing.trace() as t_old, gathered():
+            want = _run(alg, grid, a)
+        same[key] = all(torch.equal(_block_of(p), _block_of(q))
+                        for p, q in zip(got, want))
+        runs[key] = {"bytes": vol.bytes, "by": dict(vol.by),
+                     "gathered_bytes": old.bytes,
+                     "record_bytes": float(t.totals().comm_bytes),
+                     "costs_equal": costs(t) == costs(t_old)}
+        del got, want
+    out["runs"] = runs
+    out["rank"] = {"rank": me, "fails": fails, "same": same,
+                   "other_spec_callers": sorted(other_spec)}
+    return out
