@@ -27,12 +27,12 @@ from __future__ import annotations
 
 import multiprocessing as mp
 import os
-import queue
 import shutil
 import tempfile
 import time
 import traceback
 from datetime import timedelta
+from multiprocessing.connection import wait
 
 import torch
 import torch.distributed as dist
@@ -95,7 +95,7 @@ def _to_host(obj):
 
 
 def _rank_main(rank: int, world: int, init: str, device: str, backend,
-               fn, args, env, threads, timeout_s, results) -> None:
+               fn, args, env, threads, timeout_s, conn) -> None:
     try:
         for k, v in (env or {}).items():
             if v is None:
@@ -109,15 +109,41 @@ def _rank_main(rank: int, world: int, init: str, device: str, backend,
             dev = torch.device("cuda", rank % torch.cuda.device_count())
         _init(dev, backend, init_method=init, world_size=world, rank=rank,
               timeout=timedelta(seconds=timeout_s))
-        out = fn(*args)
-        results.put((rank, True, _to_host(out)))
+        conn.send((True, _to_host(fn(*args))))
     except Exception:  # noqa: BLE001 - every failure goes to the parent
-        results.put((rank, False, traceback.format_exc()))
+        conn.send((False, traceback.format_exc()))
         return
     try:
         dist.destroy_process_group()
     except Exception:  # noqa: BLE001 - the result is already delivered
         pass
+
+
+def _collect(conns, procs, timeout: float) -> tuple[dict, str | None]:
+    """Every rank's answer, (True, result) or (False, traceback), from its
+    end of a pipe (conns[r] for procs[r]), waiting on all the pipes at
+    once for up to `timeout` seconds (a rank that dies closes its pipe):
+    ({rank: result}, None), or with what went wrong first (a failed rank,
+    a rank that died, the ranks still running at the deadline)."""
+    got: dict = {}
+    waiting = {c: r for r, c in enumerate(conns)}
+    deadline = time.monotonic() + timeout
+    while waiting:
+        ready = wait(list(waiting), max(0.0, deadline - time.monotonic()))
+        if not ready:
+            return got, (f"the world did not finish in {timeout:g} s; ranks "
+                         f"still running: {sorted(waiting.values())}")
+        for c in ready:
+            r = waiting.pop(c)
+            try:
+                ok, payload = c.recv()
+            except EOFError:  # the rank died before it answered
+                procs[r].join(1)
+                return got, f"rank {r} exited with code {procs[r].exitcode}"
+            if not ok:
+                return got, f"rank {r} failed:\n{payload}"
+            got[r] = payload
+    return got, None
 
 
 def launch(fn, nprocs: int, *args, device="cuda", backend: str | None = None,
@@ -134,36 +160,22 @@ def launch(fn, nprocs: int, *args, device="cuda", backend: str | None = None,
     ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="capital_world_")
     init = "file://" + os.path.join(tmp, "rendezvous")
-    results = ctx.Queue()
+    pipes = [ctx.Pipe(duplex=False) for _ in range(nprocs)]
     procs = [ctx.Process(target=_rank_main,
                          args=(r, nprocs, init, str(device), backend, fn,
-                               args, env, threads, timeout, results))
+                               args, env, threads, timeout, pipes[r][1]))
              for r in range(nprocs)]
-    got: dict = {}
-    failure = None
+    got, failure = {}, None
     try:
         for p in procs:
             p.start()
-        deadline = time.monotonic() + timeout
-        while len(got) < nprocs and failure is None:
-            try:
-                rank, ok, payload = results.get(timeout=0.5)
-            except queue.Empty:
-                dead = [r for r, p in enumerate(procs)
-                        if r not in got and p.exitcode not in (None, 0)]
-                if dead:
-                    failure = (f"rank {dead[0]} exited with code "
-                               f"{procs[dead[0]].exitcode}")
-                elif time.monotonic() > deadline:
-                    failure = f"the world did not finish in {timeout} s"
-                continue
-            if ok:
-                got[rank] = payload
-            else:
-                failure = f"rank {rank} failed:\n{payload}"
-        if failure is None:
+        for _, w in pipes:
+            w.close()
+        got, failure = _collect([r for r, _ in pipes], procs, timeout)
+        if failure is None:  # let every rank leave its process group
+            end = time.monotonic() + 30
             for p in procs:
-                p.join(timeout=60)
+                p.join(max(0.0, end - time.monotonic()))
     finally:
         for p in procs:
             if p.is_alive():
@@ -172,6 +184,8 @@ def launch(fn, nprocs: int, *args, device="cuda", backend: str | None = None,
             p.join(timeout=10)
             if p.is_alive():
                 p.kill()
+        for rd, _ in pipes:
+            rd.close()
         shutil.rmtree(tmp, ignore_errors=True)
     if failure is not None:
         raise RuntimeError(f"launch({getattr(fn, '__name__', fn)}, "

@@ -33,6 +33,9 @@ from capital_tpu.grid import Grid as JGrid
 from capital_tpu_torch import Grid, interop
 from capital_tpu_torch.apps import als
 from capital_tpu_torch.bench import als as bench_als
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(60, setup=120)
 
 torch.set_num_threads(1)
 

@@ -39,6 +39,9 @@ from capital_tpu_torch import Grid, interop, validate
 from capital_tpu_torch.algs import cacqr
 from capital_tpu_torch.ops import counters, reset_counters
 from capital_tpu_torch.ops.precision import default_matmul_precision
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(150, setup=120)
 
 torch.set_num_threads(1)
 
@@ -104,13 +107,21 @@ def _jax(fn, m, n, seed, level, route, chol=(), dtype="float32", **kw):
     cfg = _jcfg(route, chol, **kw)
     with _route(route), jax.default_matmul_precision(level):
         q, r = jax.jit(lambda x: getattr(jcacqr, fn)(grid, x, cfg))(a)
-    layout = "2d" if fn == "factor_3d" else "1d"
-    orth = jax.jit(lambda x: jvalidate.qr_orthogonality(grid, x,
-                                                        layout=layout))(q)
-    res = jax.jit(lambda x, y, z: jvalidate.qr_residual(
-        grid, x, y, z, layout=layout))(a, q, r)
+    orth, res = _validators("2d" if fn == "factor_3d" else "1d")
     return (np.asarray(q.astype(jnp.float32)),
-            np.asarray(r.astype(jnp.float32)), float(orth), float(res))
+            np.asarray(r.astype(jnp.float32)), float(orth(q)),
+            float(res(a, q, r)))
+
+
+@functools.lru_cache(maxsize=None)
+def _validators(layout):
+    """The JAX package's orthogonality and residual on the one-device
+    grid, jitted once a layout."""
+    grid = _jgrid()
+    return (jax.jit(lambda x: jvalidate.qr_orthogonality(grid, x,
+                                                         layout=layout)),
+            jax.jit(lambda x, y, z: jvalidate.qr_residual(
+                grid, x, y, z, layout=layout)))
 
 
 def _port(fn, m, n, seed, level, route, chol=(), dtype="float32", **kw):

@@ -15,6 +15,9 @@ import torch
 
 from capital_tpu.ops.pallas_chol import chol_inv_pallas
 from capital_tpu_torch.ops import cuda_chol, lapack
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(60, setup=120)
 
 torch.set_num_threads(1)
 

@@ -36,6 +36,9 @@ from capital_tpu_torch import Grid, interop, matrix, validate
 from capital_tpu_torch.algs import cholinv
 from capital_tpu_torch.bench import cholinv as bench_cholinv
 from capital_tpu_torch.ops import counters, reset_counters
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(60, setup=120)
 
 torch.set_num_threads(1)
 

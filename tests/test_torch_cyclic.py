@@ -31,6 +31,9 @@ from capital_tpu.parallel import cyclic as jcyclic
 from capital_tpu_torch import Grid, tracing, validate
 from capital_tpu_torch.algs import cholinv, cholinv_cyclic
 from capital_tpu_torch.parallel import cyclic
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(60, setup=120)
 
 torch.set_num_threads(1)
 TB = 128

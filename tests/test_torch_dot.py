@@ -21,6 +21,9 @@ from jax import lax
 
 from capital_tpu.ops import pallas_dot
 from capital_tpu_torch.ops import cuda_dot, precision
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(60, setup=120)
 
 torch.set_num_threads(1)
 

@@ -33,6 +33,9 @@ from capital_tpu_torch.entry import entry
 from capital_tpu_torch.examples import (
     bounds_held, gp_regression, orthogonalize_embeddings, spectral_analysis,
     steady_state_transport)
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(60, setup=120)
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent

@@ -18,6 +18,9 @@ from capital_tpu_torch.ops import counters, reset_counters
 from capital_tpu_torch.ops.cuda_getrf import (RES_MAX_BLOCKS, RES_STATIC_SMEM,
                                               RES_THREADS, getrf_leaf,
                                               getrf_leaf_plain, plan)
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(60, setup=120)
 
 torch.set_num_threads(1)
 

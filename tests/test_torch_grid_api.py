@@ -23,6 +23,9 @@ from capital_tpu_torch import Grid, matrix, tracing
 from capital_tpu_torch.algs import cholinv
 from capital_tpu_torch.grid import P, Sharding
 from capital_tpu_torch.parallel import summa
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(150, setup=120)
 
 torch.set_num_threads(1)
 

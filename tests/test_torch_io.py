@@ -27,6 +27,9 @@ from capital_tpu_torch import Grid, interop, matrix
 from capital_tpu_torch import io as cio
 from capital_tpu_torch import native
 from capital_tpu_torch.apps import als, rsvd
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(60, setup=120)
 
 torch.set_num_threads(1)
 

@@ -17,6 +17,9 @@ import capital_tpu_torch
 from capital_tpu_torch import Grid, interop
 from capital_tpu_torch.algs import cholinv
 from capital_tpu_torch.bench.common import device_of
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(90, setup=120)
 
 torch.set_num_threads(1)
 

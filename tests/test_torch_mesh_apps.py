@@ -31,6 +31,9 @@ import torch_mesh_ranks as R
 from capital_tpu import tracing as jtracing
 from capital_tpu.apps import als as jals
 from capital_tpu.apps import rsvd as jrsvd
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(60, setup=180)
 
 TOL = 1e-5
 ROWS = jax.sharding.PartitionSpec(("z", "y", "x"), None)
@@ -80,7 +83,7 @@ def _draws():
 
 @pytest.fixture(scope="module")
 def port():
-    return R.world_with(R.apps_world, _draws())
+    return R.world(R.apps_world, _draws())
 
 
 def _rel(got, want):

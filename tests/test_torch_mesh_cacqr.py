@@ -26,6 +26,9 @@ from capital_tpu.algs import cacqr as jcacqr
 from capital_tpu.algs import cholinv as jcholinv
 from capital_tpu.grid import Grid as JGrid
 from capital_tpu.ops import pallas_syrk
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(90, setup=180)
 
 TOL = 1e-5
 ROWS = jax.sharding.PartitionSpec(("z", "y", "x"), None)
@@ -61,10 +64,17 @@ def _jqr(fn, g, a, cfg, layout):
     """(Q, R, orthogonality, residual, costs) of the JAX package, jitted."""
     with jtracing.trace() as t:
         q, r = jax.jit(lambda x: fn(g, x, cfg))(a)
-    orth, res = jax.jit(lambda q, r, a: (
-        jvalidate.qr_orthogonality(g, q, layout=layout),
-        jvalidate.qr_residual(g, a, q, r, layout=layout)))(q, r, a)
+    orth, res = _validators(g, layout)(q, r, a)
     return np.asarray(q), np.asarray(r), float(orth), float(res), R.costs(t)
+
+
+@functools.lru_cache(maxsize=None)
+def _validators(g, layout):
+    """The JAX package's orthogonality and residual, jitted once a grid
+    and layout."""
+    return jax.jit(lambda q, r, a: (
+        jvalidate.qr_orthogonality(g, q, layout=layout),
+        jvalidate.qr_residual(g, a, q, r, layout=layout)))
 
 
 def _rel(got, want):

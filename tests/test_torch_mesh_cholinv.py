@@ -10,6 +10,8 @@ residuals are below 5e-6; the placements agree with REPLICATED bitwise
 only where the placement says; the per-rank cost records equal the JAX
 package's per-device ones."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,9 @@ import torch_mesh_ranks as R
 from capital_tpu import tracing as jtracing
 from capital_tpu import validate as jvalidate
 from capital_tpu.algs import cholinv as jcholinv
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(180, setup=180)
 
 TOL, RES_TOL = 1e-5, 5e-6
 
@@ -34,10 +39,15 @@ def _jcfg(**kw):
     return jcholinv.Config(**base)
 
 
+@functools.lru_cache(maxsize=None)
+def _residual_fn(g):
+    """The JAX package's two residuals on grid g, jitted once a grid."""
+    return jax.jit(lambda a, r, ri: (jvalidate.cholesky_residual(g, a, r),
+                                     jvalidate.inverse_residual(g, r, ri)))
+
+
 def _residuals(g, a, r, ri):
-    return tuple(float(x) for x in jax.jit(lambda a, r, ri: (
-        jvalidate.cholesky_residual(g, a, r),
-        jvalidate.inverse_residual(g, r, ri)))(a, r, ri))
+    return tuple(float(x) for x in _residual_fn(g)(a, r, ri))
 
 
 @pytest.fixture(scope="module")

@@ -28,6 +28,9 @@ from capital_tpu import validate as jvalidate
 from capital_tpu.algs import cholinv as jcholinv
 from capital_tpu.algs import cholinv_cyclic as jcyc
 from capital_tpu.parallel import cyclic as jcyclic
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(60, setup=180)
 
 TB = R.CYC_TB
 TOL, RES_TOL = 1e-5, 5e-6

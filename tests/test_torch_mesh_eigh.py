@@ -37,6 +37,9 @@ from capital_tpu.algs import cholinv as jcholinv
 from capital_tpu.algs import eigh as jeigh
 from capital_tpu.algs import polar as jpolar
 from capital_tpu.parallel import summa as jsumma
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(120, setup=180)
 
 W_TOL, ERR_TOL, V_TOL = 1e-6, 1e-5, 1e-6
 
@@ -48,7 +51,7 @@ def _ops():
 
 @pytest.fixture(scope="module")
 def port():
-    return R.world_with(R.eigh_world, _ops())
+    return R.world(R.eigh_world, _ops())
 
 
 def _jcfg(base_n):

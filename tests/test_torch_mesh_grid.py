@@ -21,6 +21,10 @@ from capital_tpu import matrix as jmatrix
 from capital_tpu.grid import ALL_AXES
 from capital_tpu.grid import Grid as JGrid
 from capital_tpu_torch.grid import Grid
+from capital_tpu_torch.parallel.launch import launch
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(150, setup=180)
 
 JMAKERS = {"square c2 l0": dict(kind="square", c=2, d=2),
            "square c2 l1": dict(kind="square", c=2, d=2, layout=1),
@@ -206,5 +210,5 @@ def test_launch_fails_when_a_rank_fails():
     """A rank that raises fails the whole call with its traceback, while
     the others wait in a collective it never joins."""
     with pytest.raises(RuntimeError, match="rank 1 failed") as exc:
-        R.world(R.failing_world, ranks=2)
+        launch(R.failing_world, 2, device="cpu", threads=1, timeout=60)
     assert "rank one fails on purpose" in str(exc.value)

@@ -32,6 +32,9 @@ from capital_tpu import tracing as jtracing
 from capital_tpu.algs import cacqr as jcacqr
 from capital_tpu.algs import cholinv as jcholinv
 from capital_tpu.algs import polar as jpolar
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(120, setup=180)
 
 TOL = 1e-5
 NORMAL_TOL = 1e-4

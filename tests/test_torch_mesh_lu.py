@@ -47,6 +47,9 @@ import torch_mesh_ranks as R
 from capital_tpu import tracing as jtracing
 from capital_tpu.algs import lu as jlu
 from capital_tpu.parallel import summa as jsumma
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(120, setup=180)
 
 COND_TOL, REFINED_TOL, RES_TOL = 5e-4, 1e-4, 5e-5
 

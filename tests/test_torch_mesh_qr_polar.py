@@ -32,6 +32,9 @@ from capital_tpu import tracing as jtracing
 from capital_tpu.algs import cholinv as jcholinv
 from capital_tpu.algs import polar as jpolar
 from capital_tpu.algs import tsqr as jtsqr
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(120, setup=180)
 
 TOL = 1e-5
 ERR_RATIO = 2.0

@@ -22,6 +22,9 @@ from capital_tpu import validate as jvalidate
 from capital_tpu.parallel import summa as jsumma
 from capital_tpu_torch import validate
 from capital_tpu_torch.parallel import summa
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(60, setup=180)
 
 TOL = 1e-5
 

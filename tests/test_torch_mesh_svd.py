@@ -33,6 +33,9 @@ from capital_tpu.algs import cholinv as jcholinv
 from capital_tpu.algs import eigh as jeigh
 from capital_tpu.algs import polar as jpolar
 from capital_tpu.algs import svd as jsvd
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(210, setup=180)
 
 S_TOL, ERR_TOL, V_TOL, TOL = 1e-6, 1e-5, 1e-6, 1e-5
 COND_TOL = 4 * float(np.finfo(np.float32).eps)
@@ -46,7 +49,7 @@ def _ops():
 
 @pytest.fixture(scope="module")
 def port():
-    return R.world_with(R.svd_world, _ops())
+    return R.world(R.svd_world, _ops())
 
 
 @pytest.fixture(scope="module")

@@ -36,6 +36,9 @@ from capital_tpu import tracing as jtracing
 from capital_tpu.algs import newton as jnewton
 from capital_tpu.algs import rectri as jrectri
 from capital_tpu.algs import trsm as jtrsm
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(60, setup=180)
 
 TOL = 1e-5
 ERR_RATIO = 2.0

@@ -38,6 +38,9 @@ from capital_tpu_torch import entry
 from capital_tpu_torch.autotune import tune
 from capital_tpu_torch.bench import scaling
 from capital_tpu_torch.parallel import launch
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(210, setup=180)
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent

@@ -17,6 +17,9 @@ patched in, and the cost records unchanged."""
 import pytest
 
 import torch_mesh_ranks as R
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(210, setup=330)
 
 MIB = 1 << 20
 # bytes rank 0 receives, MiB (the gathering functions moved 84.8, 609.6,
@@ -28,7 +31,7 @@ BOUNDS = {"cholinv 2x2 1024": 28, "cholinv 2x2 2048": 120,
 
 @pytest.fixture(scope="module")
 def port():
-    return R.world_with(R.volume_world, R.volume_operands())
+    return R.world(R.volume_world, R.volume_operands(), limit=240)
 
 
 def test_window_set_window_take_rows_bitwise_within_bound(port):

@@ -27,6 +27,9 @@ from capital_tpu.algs import tsqr as jtsqr
 from capital_tpu.grid import Grid as JGrid
 from capital_tpu_torch import Grid, interop, tracing
 from capital_tpu_torch.algs import newton, tsqr
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(60, setup=120)
 
 torch.set_num_threads(1)
 

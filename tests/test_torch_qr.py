@@ -24,6 +24,9 @@ from capital_tpu.ops import lapack as jlapack
 from capital_tpu_torch import Grid, matrix, validate
 from capital_tpu_torch.ops import lapack
 from capital_tpu_torch.ops.precision import default_matmul_precision, dot
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(60, setup=120)
 
 torch.set_num_threads(1)
 

@@ -41,6 +41,9 @@ from capital_tpu_torch.algs import cacqr
 from capital_tpu_torch.apps import rsvd
 from capital_tpu_torch.bench import rsvd as bench_rsvd
 from capital_tpu_torch.ops import counters, reset_counters
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(60, setup=120)
 
 torch.set_num_threads(1)
 

@@ -37,6 +37,9 @@ from capital_tpu.grid import Grid as JGrid
 from capital_tpu_torch import Grid, interop, linalg
 from capital_tpu_torch.algs import svd
 from capital_tpu_torch.ops.precision import default_matmul_precision
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(90, setup=120)
 
 torch.set_num_threads(1)
 

@@ -14,6 +14,9 @@ import torch
 
 from capital_tpu.ops.pallas_syrk import syrk_upper as syrk_jax
 from capital_tpu_torch.ops import cuda_syrk, cuda_trmm
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(60, setup=120)
 
 torch.set_num_threads(1)
 

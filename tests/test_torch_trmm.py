@@ -18,6 +18,9 @@ from capital_tpu.ops import blas as jblas
 from capital_tpu.ops import pallas_trmm
 from capital_tpu.ops.pallas_trmm import trmm_upper as trmm_jax
 from capital_tpu_torch.ops import blas, cuda_trmm
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(60, setup=120)
 
 torch.set_num_threads(1)
 

@@ -18,6 +18,9 @@ import torch
 from capital_tpu.ops.pallas_dot import _split_f32
 from capital_tpu.ops.pallas_trmm import trmm_upper as trmm_jax
 from capital_tpu_torch.ops import cuda_pack, cuda_trmm
+from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
+
+pytestmark = pytest.mark.time_limit(60, setup=120)
 
 torch.set_num_threads(1)
 

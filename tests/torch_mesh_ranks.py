@@ -1,40 +1,396 @@
 """The port's side of the mesh tests (tests/test_torch_mesh_*.py): the
 functions an 8-rank gloo world runs, and the numpy operands both
 packages take. This module imports neither JAX nor the JAX package: a
-spawned rank re-imports the module its function comes from.
+rank imports the module its function comes from (a spawned rank anew;
+the fork server behind `World` has imported this one).
 
 Each `*_world` function runs every case of one test module on every
 rank and returns a dict of numpy results (whole arrays gathered on every
-rank); `world(fn)` starts the world once and returns rank 0's dict, with
-the per-rank entries of every rank under "ranks".
+rank); `world(fn)` runs it on this test process's world and returns rank
+0's dict, with the per-rank entries of every rank under "ranks".
+
+One 8-rank world serves every mesh module a test process runs (`World`):
+the first `world` call starts it, and each later call is one more task
+on the same ranks. Each task runs as on a fresh world: CAPITAL_* unset
+and the caller's other environment, fresh process groups, and the
+port's module state and torch's global state (default dtype, RNG,
+threads) as the world started with them. A task that fails on any rank,
+or runs past its time limit, takes the world down with it; the next
+task starts a new one. A world of another size, and `fresh=True`, is a
+World started for the one call.
+
+Every port test has a time limit (`pytest.mark.time_limit`, applied by
+the `limit_module` and `limit_test` fixtures each test file imports).
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
+import faulthandler
 import functools
 import os
+import signal
+import sys
+import traceback
 
 import numpy as np
+import pytest
 import torch
 
 RANKS = 8
 SPECS = {"slice": ("y", "x"), "rows": (("z", "y", "x"), None),
          "repl": (None, None), "zx": ("z", "x"), "cols": (None, "y")}
+WORLD_LIMIT = 90.0  # seconds a world task may take unless its caller says
+PRELOAD = ["torch_mesh_ranks", "torch.distributed", "capital_tpu_torch"] + [
+    f"capital_tpu_torch.{m}" for m in (
+        "interop", "linalg", "tracing", "validate", "entry", "algs.cacqr",
+        "algs.cholinv", "algs.cholinv_cyclic", "algs.eigh", "algs.lu",
+        "algs.newton", "algs.polar", "algs.rectri", "algs.svd", "algs.trsm",
+        "algs.tsqr", "apps.als", "apps.rsvd", "autotune.tune",
+        "bench.scaling", "parallel.collectives", "parallel.cyclic",
+        "parallel.darray", "parallel.launch", "parallel.summa")]
 
 
-def world(fn, *args, ranks: int = RANKS):
+def world(fn, *args, ranks: int = RANKS, limit: float = WORLD_LIMIT,
+          fresh: bool = False):
     """fn(*args) on `ranks` CPU ranks over gloo, one thread each, CAPITAL_*
     switches unset; rank 0's result, with every rank's `rank` entry listed
-    under "ranks"."""
-    from capital_tpu_torch.parallel.launch import launch
-
-    env = {k: None for k in os.environ if k.startswith("CAPITAL_")}
-    outs = launch(fn, ranks, *args, device="cpu", threads=1, env=env,
-                  timeout=300.0)
+    under "ranks". RANKS ranks run on this process's shared World unless
+    `fresh`; a fresh world, and one of another size, is a World started
+    for the call. Past `limit` seconds the call raises RuntimeError
+    naming the calling module and the ranks still running."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("CAPITAL_")}
+    if ranks == RANKS and not fresh:
+        outs = World.get().run(fn, args, env, limit, _caller())
+    else:
+        w = World(ranks)
+        try:
+            outs = w.run(fn, args, env, limit, _caller())
+        finally:
+            w.close()
     res = dict(outs[0])
     res["ranks"] = [o.get("rank") for o in outs]
     return res
+
+
+def _caller() -> str:
+    """The test module on the stack (the one whose world this is)."""
+    f = sys._getframe(1)
+    while f is not None:
+        name = f.f_globals.get("__name__", "")
+        if name.rpartition(".")[2].startswith("test_"):
+            return name
+        f = f.f_back
+    return "?"
+
+
+class World:
+    """gloo ranks, started once, that run one task after another.
+
+    Each rank holds one end of a pipe to this process and dies with it
+    (`_serve`). `run` sends every rank the task and waits on all the pipes
+    at once (a rank that dies closes its pipe) up to the task's limit: no
+    clock is polled. `World.get()` is this process's shared world of
+    RANKS ranks; RANKS-rank worlds started in this process:
+    `World.starts`."""
+
+    current: "World | None" = None
+    starts = 0
+
+    @classmethod
+    def get(cls) -> "World":
+        if cls.current is None or not cls.current.alive():
+            cls.current = World()
+        return cls.current
+
+    def __init__(self, ranks: int = RANKS):
+        import multiprocessing as mp
+
+        import torch.distributed as dist
+
+        # ranks fork from a single-threaded server that has imported torch
+        # and the port once (PRELOAD), instead of each importing them anew
+        # (this process, with JAX's threads, is never forked)
+        ctx = mp.get_context("forkserver")
+        ctx.set_forkserver_preload(PRELOAD)
+        # the rendezvous lives here: ranks connect to it, never to a file
+        self.store = dist.TCPStore("127.0.0.1", 0, None, True,
+                                   wait_for_workers=False)
+        self.ranks, self.conns, self.procs = ranks, [], []
+        for r in range(ranks):
+            mine, theirs = ctx.Pipe()
+            p = ctx.Process(target=_serve, daemon=True,
+                            args=(r, ranks, self.store.port, theirs,
+                                  os.getpid()))
+            p.start()
+            theirs.close()
+            self.conns.append(mine)
+            self.procs.append(p)
+        if ranks == RANKS:
+            World.starts += 1
+
+    def alive(self) -> bool:
+        return all(p.is_alive() for p in self.procs)
+
+    def run(self, fn, args, env, limit, where) -> list:
+        from capital_tpu_torch.parallel.launch import _collect
+
+        try:
+            for c in self.conns:
+                c.send((fn, args, env))
+            got, failure = _collect(self.conns, self.procs, limit)
+        except BaseException:
+            self.close()
+            raise
+        if failure is not None:
+            self.close()
+            raise RuntimeError(f"{where}: world({getattr(fn, '__name__', fn)})"
+                               f": {failure}")
+        return [got[r] for r in range(self.ranks)]
+
+    def close(self) -> None:
+        """Stop every rank now (the next task starts a new world)."""
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+        for p in self.procs:
+            p.join(5)
+        for c in self.conns:
+            c.close()
+        if World.current is self:
+            World.current = None
+
+
+def _die_with(owner: int) -> None:
+    """This rank gets SIGKILL when its parent, the fork server, exits (it
+    does when `owner`, the test process, does: Linux prctl
+    PR_SET_PDEATHSIG), and exits now if `owner` already has."""
+    import ctypes
+
+    with contextlib.suppress(OSError, AttributeError):
+        ctypes.CDLL("libc.so.6", use_errno=True).prctl(1, signal.SIGKILL)
+    try:
+        os.kill(owner, 0)
+    except OSError:
+        os._exit(1)
+
+
+def _serve(rank: int, size: int, port: int, conn, owner: int) -> None:
+    """A World rank: join the world, then run each task the pipe brings
+    (fn, args, env) from the state the world started with, send back
+    (True, result) or (False, traceback), and drop the task's process
+    groups. The pipe's end (the parent has gone) or None ends it."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from capital_tpu_torch.parallel import launch
+
+    _die_with(owner)
+    torch.set_num_threads(1)
+    store = dist.TCPStore("127.0.0.1", port, None, False)
+    launch._init(torch.device("cpu"), "gloo", store=store, rank=rank,
+                 world_size=size, timeout=timedelta(seconds=600))
+    base = _torch_state()
+    ctx = contextvars.copy_context()
+    while True:
+        try:
+            task = conn.recv()
+        except EOFError:
+            break
+        if task is None:
+            break
+        fn, args, env = task
+        try:
+            _reset(env, base)
+            out = (True, launch._to_host(ctx.copy().run(fn, *args)))
+        except Exception:  # noqa: BLE001 - every failure goes to the parent
+            conn.send((False, traceback.format_exc()))
+            continue  # the parent takes the world down
+        conn.send(out)
+        _drop_groups()  # should it raise, this rank exits: the world is broken
+    dist.destroy_process_group()
+
+
+def _torch_state() -> dict:
+    return {"dtype": torch.get_default_dtype(),
+            "rng": torch.get_rng_state(),
+            "matmul": torch.get_float32_matmul_precision(),
+            "grad": torch.is_grad_enabled(),
+            "deterministic": torch.are_deterministic_algorithms_enabled()}
+
+
+def _reset(env: dict, base: dict) -> None:
+    """What a task may have changed, back as a fresh rank has it: the
+    environment (the caller's, CAPITAL_* unset), torch's global state,
+    and the port's module state (launch's world device, the tracer, the
+    kernel counters, the mesh and group-order caches; the precision
+    context is the task's own copy of the rank's first context)."""
+    os.environ.clear()
+    os.environ.update(env)
+    torch.set_num_threads(1)
+    torch.set_default_dtype(base["dtype"])
+    torch.set_rng_state(base["rng"])
+    torch.set_float32_matmul_precision(base["matmul"])
+    torch.set_grad_enabled(base["grad"])
+    if torch.are_deterministic_algorithms_enabled() != base["deterministic"]:
+        # (its first call takes seconds: only when a task changed it)
+        torch.use_deterministic_algorithms(base["deterministic"])
+    from capital_tpu_torch import tracing
+    from capital_tpu_torch.ops import reset_counters
+    from capital_tpu_torch.parallel import launch
+
+    launch._WORLD_DEVICE = torch.device("cpu")
+    tracing._tls.__dict__.clear()
+    reset_counters()
+
+
+def _drop_groups() -> None:
+    """Every rank done with the task (a world barrier), destroy every
+    process group but the world's and forget the meshes built on them:
+    the next task builds its own."""
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d as c10d
+
+    from capital_tpu_torch import grid
+    from capital_tpu_torch.parallel import collectives
+
+    dist.barrier()
+    world_pg = c10d._get_default_group()
+    for pg in list(c10d._world.pg_map):
+        if pg is not world_pg:
+            dist.destroy_process_group(pg)
+    grid._MESHES.clear()
+    collectives._ORDERS.clear()
+
+
+# ---------------------------------------------------------------------------
+# time limits: every port test file imports limit_module and limit_test,
+# and marks its tests with pytest.mark.time_limit(seconds, setup=seconds)
+# ---------------------------------------------------------------------------
+
+class TimeLimit(Exception):
+    """A port test ran past its time limit."""
+
+
+HANG_GRACE = 30  # seconds past a limit before a hung test process is ended
+
+
+class _Watchdog:
+    """One thread a test process that holds the current limit. At its
+    deadline it sends the main thread SIGALRM, whose handler raises
+    TimeLimit there; code that never returns to Python (a hung native
+    call) cannot take the signal, so HANG_GRACE seconds later the thread
+    writes every thread's stack to stderr and ends the process."""
+
+    def __init__(self, config):
+        import threading
+
+        self.config = config  # its capture is lifted before the last words
+        self.cv = threading.Condition()
+        self.gen, self.deadline, self.what = 0, None, ""
+        self.fired = None  # the arming whose deadline passed
+        signal.signal(signal.SIGALRM, self._raise)
+        threading.Thread(target=self._watch, name="time-limit",
+                         daemon=True).start()
+
+    def arm(self, seconds: float, what: str) -> None:
+        import time
+
+        with self.cv:
+            self.gen += 1
+            self.deadline = time.monotonic() + seconds
+            self.what = f"{what} ran past its time limit of {seconds:g} s"
+            self.cv.notify()
+
+    def disarm(self) -> None:
+        with self.cv:
+            self.gen += 1
+            self.deadline = None
+            self.cv.notify()
+
+    def _raise(self, signum, frame):
+        with self.cv:
+            if self.fired != self.gen:  # re-armed since: not this test's
+                return
+            what = self.what
+        raise TimeLimit(what)
+
+    def _watch(self) -> None:
+        import threading
+        import time
+
+        main = threading.main_thread().ident
+        with self.cv:
+            while True:
+                if self.deadline is None:
+                    self.cv.wait()
+                    continue
+                late = time.monotonic() - self.deadline
+                if late < 0:
+                    self.cv.wait(-late)
+                elif self.fired != self.gen:
+                    self.fired = self.gen
+                    signal.pthread_kill(main, signal.SIGALRM)
+                elif late < HANG_GRACE:
+                    self.cv.wait(HANG_GRACE - late)
+                else:
+                    capture = self.config.pluginmanager.getplugin(
+                        "capturemanager")
+                    with contextlib.suppress(Exception):
+                        capture.suspend_global_capture(in_=True)
+                    sys.__stderr__.write(f"{self.what}; hung {HANG_GRACE} s "
+                                         "more: ending the process\n")
+                    sys.__stderr__.flush()
+                    faulthandler.dump_traceback(file=sys.__stderr__)
+                    os._exit(1)
+
+
+_WATCHDOG: list = []
+
+
+def _arm(config, seconds: float, what: str) -> None:
+    if not _WATCHDOG:
+        _WATCHDOG.append(_Watchdog(config))
+    _WATCHDOG[0].arm(seconds, what)
+
+
+def _disarm() -> None:
+    if _WATCHDOG:
+        _WATCHDOG[0].disarm()
+
+
+def _limits(node) -> tuple:
+    mark = node.get_closest_marker("time_limit")
+    if mark is None:
+        raise TimeLimit(f"{node.nodeid} has no time_limit mark")
+    return mark.args[0], mark.kwargs.get("setup", mark.args[0])
+
+
+_SETUP = pytest.StashKey[tuple]()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def limit_module(request):
+    """The module's shared fixtures (a world's task, the JAX side) get
+    the module mark's `setup` seconds before each test that needs them."""
+    _, setup = _limits(request.node)
+    what = f"{request.node.nodeid} setup"
+    _arm(request.config, setup, what)
+    request.node.stash[_SETUP] = (setup, what)
+    yield
+    _disarm()
+
+
+@pytest.fixture(autouse=True)
+def limit_test(request, limit_module):
+    """The test's own seconds (its closest time_limit mark) for its call
+    and its function fixtures."""
+    seconds, _ = _limits(request.node)
+    _arm(request.config, seconds, request.node.nodeid)
+    yield
+    _arm(request.config, *request.node.getparent(pytest.Module).stash[_SETUP])
 
 
 def operand(m: int, n: int, seed: int) -> np.ndarray:
@@ -228,6 +584,103 @@ def hybrid_world() -> dict:
     return {"grid": grid.shape, "gram": tuple(g.shape), "q": qn.shape,
             "r": rn.shape, "spec": tuple(q.spec),
             "res": float(np.abs(qn @ rn - a_np).max())}
+
+
+# ---------------------------------------------------------------------------
+# the world itself (test_torch_mesh_world.py): what a task starts from
+# ---------------------------------------------------------------------------
+
+def _start_state() -> dict:
+    """What a task reads of the state it starts from."""
+    from torch.distributed import distributed_c10d as c10d
+
+    from capital_tpu_torch import grid, tracing
+    from capital_tpu_torch.ops import counters, precision
+    from capital_tpu_torch.parallel import collectives, launch
+
+    return {"env": sorted(k for k in os.environ if k.startswith("CAPITAL_")),
+            "precision": precision._active.get(),
+            "tracer": tracing.active() is not None,
+            "dtype": str(torch.get_default_dtype()),
+            "threads": torch.get_num_threads(),
+            "device": str(launch.world_device()),
+            "groups": len(c10d._world.pg_map), "meshes": len(grid._MESHES),
+            "orders": len(collectives._ORDERS), "counters": counters()}
+
+
+def draw_world() -> dict:
+    """The start state, draws of torch's global generator (whose seed is
+    the process's own: a fresh world's differ from any other's) and
+    cholinv, with its cost records, of an SPD operand plus seeded draws
+    on the 2 x 2 x 2 grid."""
+    import torch.distributed as dist
+
+    from capital_tpu_torch import Grid, interop, tracing
+    from capital_tpu_torch.algs import cholinv
+
+    state = _start_state()
+    drawn = torch.rand(8).numpy()
+    noise = torch.rand(64, 64, generator=torch.Generator().manual_seed(5))
+    g = Grid.square(c=2, d=2)
+    a = spd(64, 3) + 1e-3 * (noise + noise.T).numpy()
+    with tracing.trace() as t:
+        r, ri = cholinv.factor(g, interop.dist_from_numpy(a, g, SPECS["slice"]),
+                               chol_cfg(min_bc=16))
+    return {"state": state, "global_draws": drawn, "r": _np(r),
+            "ri": _np(ri), "costs": costs(t),
+            "rank": {"rank": dist.get_rank(), "state": state}}
+
+
+def gemm_world() -> dict:
+    """The start state and summa.gemm of seeded normal draws on the rect
+    grid."""
+    import torch.distributed as dist
+
+    from capital_tpu_torch import Grid, interop
+    from capital_tpu_torch.parallel import summa
+
+    state = _start_state()
+    gen = torch.Generator().manual_seed(7)
+    a = torch.randn(64, 32, generator=gen).numpy()
+    b = torch.randn(32, 48, generator=gen).numpy()
+    g = Grid.rect(c=2)
+    c = summa.gemm(g, interop.dist_from_numpy(a, g, SPECS["rows"]),
+                   interop.dist_from_numpy(b, g, SPECS["repl"]))
+    return {"state": state, "c": _np(c),
+            "rank": {"rank": dist.get_rank(), "state": state}}
+
+
+def leak_world() -> dict:
+    """Leaves behind what a task could: a CAPITAL_* switch, a precision
+    context, a tracer, torch's dtype, seed and threads, launch's world
+    device, kernel counts, a grid's meshes and groups."""
+    import torch.distributed as dist
+
+    from capital_tpu_torch import Grid, tracing
+    from capital_tpu_torch.ops import lapack, precision
+    from capital_tpu_torch.parallel import launch
+
+    os.environ["CAPITAL_LU_LOOKAHEAD"] = "1"
+    precision._active.set("default")
+    tracing._tls.tracer = tracing.Tracer()
+    torch.set_default_dtype(torch.float64)
+    torch.manual_seed(1234)
+    torch.set_num_threads(2)
+    launch._WORLD_DEVICE = torch.device("meta")
+    lapack.chol_inv.xla_calls += 3
+    g = Grid.square(c=2, d=2)
+    return {"rank": dist.get_rank(), "meshes": g.mesh is not None}
+
+
+def stall_world(stalled: int) -> dict:
+    """Rank `stalled` never answers (it sleeps); the others return."""
+    import time
+
+    import torch.distributed as dist
+
+    if dist.get_rank() == stalled:
+        time.sleep(3600)
+    return {"rank": dist.get_rank()}
 
 
 # ---------------------------------------------------------------------------
@@ -825,31 +1278,6 @@ def linalg_world(ops: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# operands through a file (a spawned rank unpickles a large argument
-# slowly: a 256 KiB one costs ~15 s of world start here)
-# ---------------------------------------------------------------------------
-
-def world_with(fn, ops: dict, ranks: int = RANKS):
-    """world(fn, path), the flat dict of numpy arrays `ops` saved to a
-    fresh .npz file at `path` for the call's length (fn reads it with
-    unstash)."""
-    import tempfile
-
-    fd, path = tempfile.mkstemp(prefix="capital_ops_", suffix=".npz")
-    os.close(fd)
-    try:
-        np.savez(path, **ops)
-        return world(fn, path, ranks=ranks)
-    finally:
-        os.remove(path)
-
-
-def unstash(path: str) -> dict:
-    with np.load(path) as f:
-        return {k: f[k] for k in f.files}
-
-
-# ---------------------------------------------------------------------------
 # the cyclic workspace and cholinv_cyclic
 # ---------------------------------------------------------------------------
 
@@ -1014,14 +1442,13 @@ def decisions(out: list):
         yield
 
 
-def eigh_world(path: str) -> dict:
+def eigh_world(ops: dict) -> dict:
     import torch.distributed as dist
 
     from capital_tpu_torch import interop
     from capital_tpu_torch.algs import eigh
     from capital_tpu_torch.ops.precision import default_matmul_precision
 
-    ops = unstash(path)
     g = _grids()["222"]
     flat = _flat(g)
     out = {"eigh": {}, "seen": {}, "spec": {}}
@@ -1104,14 +1531,13 @@ SVD_LINALG = {
 }
 
 
-def svd_world(path: str) -> dict:
+def svd_world(ops: dict) -> dict:
     import torch.distributed as dist
 
     from capital_tpu_torch import interop, linalg
     from capital_tpu_torch.algs import svd
     from capital_tpu_torch.ops.precision import default_matmul_precision
 
-    ops = unstash(path)
     grids = _grids()
     grids["flat"] = _flat(grids["222"])
     rows = SPECS["rows"]
@@ -1187,9 +1613,9 @@ def pca_data(m: int = 2048, n: int = 128, k: int = 8, seed: int = 11):
         np.float32)
 
 
-def apps_world(path: str) -> dict:
-    """The apps on the world's grids with the JAX package's draws (in the
-    file: omega_<n>_<l>, the dense generator's ut/vt/noise/unif, the sparse
+def apps_world(ops: dict) -> dict:
+    """The apps on the world's grids with the JAX package's draws (in ops:
+    omega_<n>_<l>, the dense generator's ut/vt/noise/unif, the sparse
     one's perms/shifts/ut/vt, and the initial V's v0_dense, v0_sparse)
     patched into the port's draw helpers."""
     from unittest import mock
@@ -1199,7 +1625,6 @@ def apps_world(path: str) -> dict:
     from capital_tpu_torch import interop, tracing
     from capital_tpu_torch.apps import als, rsvd
 
-    ops = unstash(path)
     t = {k: torch.from_numpy(v) for k, v in ops.items()}
     grids = _grids()
     rows = SPECS["rows"]
@@ -1625,7 +2050,7 @@ def _block_of(x):
     return getattr(x, "local", x)
 
 
-def volume_world(path: str) -> dict:
+def volume_world(ops: dict) -> dict:
     """The window cases, the ppermute case, and each of VOL_RUNS twice:
     with darray's windows and with the gathering ones patched in. Rank
     0's bytes and results, each rank's failures, bitwise agreements and
@@ -1638,7 +2063,6 @@ def volume_world(path: str) -> dict:
     from capital_tpu_torch import interop, tracing
     from capital_tpu_torch.parallel import darray
 
-    ops = unstash(path)
     me = dist.get_rank()
     out, fails = {}, []
     _window_cases(out, fails, me)
