@@ -1,0 +1,9 @@
+"""Device ms a call of the TRMM kernels (names holding 'trmm_': the wgmma
+and FFMA kernels of csrc/trmm_upper.cu, not the shared pack pass), from
+torch.profiler over the traced calls, on rank 0."""
+
+from benchmark.metrics._kernels import ms_per_call
+
+
+def read(r):
+    return ms_per_call(r, "trmm_")
