@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_mesh_ranks as R
 from capital_tpu import tracing as jtracing
 from capital_tpu import validate as jvalidate
 from capital_tpu.algs import cacqr as jcacqr
@@ -59,8 +60,8 @@ def _operand(m, n, seed):
 def _route(route):
     with contextlib.ExitStack() as stack:
         if route == "tri":
-            stack.enter_context(mock.patch.dict(
-                os.environ, {"CAPITAL_TRMM_METHOD": "tri"}))
+            R.setenv(stack.enter_context(pytest.MonkeyPatch.context()),
+                     CAPITAL_TRMM_METHOD="tri")
             for mod, name in ((pallas_syrk, "syrk_upper"),
                               (pallas_trmm, "trmm_upper")):
                 stack.enter_context(mock.patch.object(

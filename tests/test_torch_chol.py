@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_mesh_ranks as R
 from capital_tpu.ops.pallas_chol import chol_inv_pallas
 from capital_tpu_torch.ops import cuda_chol, lapack
 from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
@@ -90,7 +91,7 @@ def test_chol_inv_dispatch(monkeypatch):
     cuda_chol.chol_inv_cuda.launches = 0
     r_auto, _ = lapack.chol_inv(a)
     assert lapack.chol_inv.xla_calls == 1
-    monkeypatch.setenv("CAPITAL_CHOL_METHOD", "pallas")
+    R.setenv(monkeypatch, CAPITAL_CHOL_METHOD="pallas")
     r_leaf, _ = lapack.chol_inv(a)
     assert lapack.chol_inv.xla_calls == 1
     lapack.chol_inv(torch.from_numpy(_spd(200, 2)))

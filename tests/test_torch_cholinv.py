@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_mesh_ranks as R
 from capital_tpu import matrix as jmatrix
 from capital_tpu import validate as jvalidate
 from capital_tpu.algs import cholinv as jcholinv
@@ -93,8 +94,7 @@ def test_factor_matches_jax(n, min_bc, split, lower, kernels, monkeypatch):
     a_np, shape, cfg_d, r_j, ri_j, res_j, inv_j = _jax_case(
         n, min_bc, split, lower, "pallas" if kernels else "auto")
     if kernels:
-        for var, val in KERNELS.items():
-            monkeypatch.setenv(var, val)
+        R.setenv(monkeypatch, **KERNELS)
     grid = Grid.square(c=1, d=1, device="cpu")
     a = interop.dist_matrix_from_numpy(a_np, shape, "rect", device="cpu")
     cfg = interop.config_from_dict(cfg_d)

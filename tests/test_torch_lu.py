@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_mesh_ranks as R
 from capital_tpu import tracing as jtracing
 from capital_tpu.algs import lu as jlu
 from capital_tpu.bench import lu as jbench
@@ -111,8 +112,7 @@ def _jax_case(name):
     n, nb, seed, zp, env = CASES[name]
     a = _operand(n, seed, zp)
     with pytest.MonkeyPatch.context() as mp:
-        for k, v in env.items():
-            mp.setenv(k, v)
+        R.setenv(mp, **env)
         w, perm, sign = _jit_factor(nb)(jnp.asarray(a))
     return a, np.asarray(w), np.asarray(perm), float(sign)
 
@@ -121,8 +121,7 @@ def _jax_case(name):
 def test_factor_matches_jax(name, monkeypatch):
     n, nb, _, zp, env = CASES[name]
     a, w_j, perm_j, sign_j = _jax_case(name)
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
+    R.setenv(monkeypatch, **env)
     at = torch.from_numpy(a.copy())
     reset_counters()
     w, perm, sign = lu.factor(_cpu(), at, lu.Config(nb=nb))
@@ -146,11 +145,11 @@ def test_plain_leaf_on_request_is_counted(monkeypatch):
     """CAPITAL_LU_LEAF=jax sends every leaf to the plain version and counts
     it; the count is the recursion's leaf count (lu.leaves), which
     chip_smoke.py holds the kernel's launches to on the card."""
-    monkeypatch.setenv("CAPITAL_LU_PANEL", "jax")
+    R.setenv(monkeypatch, CAPITAL_LU_PANEL="jax")
     n, nb = 256, 128
     a = torch.from_numpy(_operand(n, 1))
     w0, p0, _ = lu.factor(_cpu(), a, lu.Config(nb=nb))
-    monkeypatch.setenv("CAPITAL_LU_LEAF", "jax")
+    R.setenv(monkeypatch, CAPITAL_LU_LEAF="jax")
     reset_counters()
     w1, p1, _ = lu.factor(_cpu(), a, lu.Config(nb=nb))
     lw = lu.leaf_width(on_card=False)
@@ -166,16 +165,16 @@ def test_leaf_width_on_the_card():
 
 
 def test_leaf_width_switches(monkeypatch):
-    monkeypatch.setenv("CAPITAL_LU_WIDE_LEAF", "0")
+    R.setenv(monkeypatch, CAPITAL_LU_WIDE_LEAF="0")
     assert lu.leaf_width(on_card=True) == 64
-    monkeypatch.setenv("CAPITAL_LU_IB", "32")
+    R.setenv(monkeypatch, CAPITAL_LU_IB="32")
     assert lu.leaf_width(on_card=True) == 32
     assert lu.leaf_width(on_card=False) == 32
 
 
 @pytest.mark.parametrize("panel", ["auto", "jax"])
 def test_bf16_factors_in_f32(panel, monkeypatch):
-    monkeypatch.setenv("CAPITAL_LU_PANEL", panel)
+    R.setenv(monkeypatch, CAPITAL_LU_PANEL=panel)
     a = _operand(128, 2)
     w, perm, _ = lu.factor(_cpu(), torch.from_numpy(a).bfloat16(),
                            lu.Config(nb=64))
@@ -243,7 +242,7 @@ def test_f64_route_matches_jax():
         perm_j = np.asarray(perm_j)
     for panel in ("auto", "jax"):
         with pytest.MonkeyPatch.context() as mp:
-            mp.setenv("CAPITAL_LU_PANEL", panel)
+            R.setenv(mp, CAPITAL_LU_PANEL=panel)
             w, perm, _ = lu.factor(_cpu(), torch.from_numpy(a),
                                    lu.Config(nb=64))
         assert w.dtype == torch.float64

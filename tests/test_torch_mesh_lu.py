@@ -104,8 +104,7 @@ def jax_side(grids):
     for name, (gname, env) in R.LU_CASES.items():
         g = grids[gname]
         with _isolated_state() as mp:
-            for k, v in env.items():
-                mp.setenv(k, v)
+            R.setenv(mp, **env)
             with jtracing.trace() as t:
                 w, perm, sign = jax.jit(lambda x: jlu.factor(
                     g, x, jlu.Config(nb=R.LU_NB)))(_slice(g, a_np))

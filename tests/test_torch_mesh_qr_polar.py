@@ -7,7 +7,10 @@ takes the polar decomposition of a 128 x 128 operand in the '2d' layout
 on the flat 2 x 2 view (with H) and on the 2 x 2 x 2 grid (U only), and
 of a 1024 x 64 operand in the '1d' layout on the 1D grid (with and
 without H); resolves layout 'auto'; and runs nearest_orthogonal (both
-layouts) and nearest_psd.
+layouts) and nearest_psd; and checks on the flat 2 x 2 view, against the
+construction's numpy oracle alone, tests/test_polar.py's five properties
+of the '2d' polar (square, ill-conditioned, f64, U only, the symmetric
+involution), with its operands, seeds and bars.
 
 Tolerances (the one-device files'): TSQR's R to relative Frobenius 1e-5
 of the JAX package's, Q column by column as tests/test_torch_newton_tsqr
@@ -226,3 +229,61 @@ def test_nearest_orthogonal_and_psd_match_jax(port, grid122, grid1d8):
         assert _rel(got[key], want) < TOL, (key, _rel(got[key], want))
     assert np.array_equal(got["psd"], got["psd"].T)
     assert np.linalg.eigvalsh(got["psd"].astype(np.float64)).min() > -1e-5
+
+
+def _controlled(n, cond, seed):
+    """tests/test_polar.py's A = U diag(s) V^T (f64) and its exact polar
+    factor U V^T."""
+    rng = np.random.default_rng(seed)
+    u, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    v, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    return (u * np.geomspace(1.0, 1.0 / cond, n)) @ v.T, u @ v.T
+
+
+def _symmetric(n, seed):
+    s = np.random.default_rng(seed).standard_normal((n, n))
+    return (s + s.T) / 2 + np.diag(np.linspace(-2, 2, n)), None
+
+
+# name: (operand, dtype, compute_h, bars): orthogonality, reconstruction,
+# max |U - U_exact|, H's least eigenvalue (> -bar), U^2 = I for symmetric A
+POLAR_2X2 = {
+    "square": (lambda: _controlled(256, 50.0, 0), np.float32, True,
+               {"orth": 5e-6, "rec": 1e-5, "exact": 1e-4, "psd": 1e-5}),
+    "illconditioned": (lambda: _controlled(192, 1e4, 1), np.float32, True,
+                       {"orth": 5e-6, "rec": 2e-5, "exact": 5e-3}),
+    "f64": (lambda: _controlled(128, 1e7, 4), np.float64, True,
+            {"orth": 1e-13, "rec": 1e-12, "exact": 1e-8}),
+    "u_only": (lambda: _controlled(128, 10.0, 3), np.float32, False,
+               {"orth": 5e-6}),
+    "symmetric_involution": (lambda: _symmetric(128, 5), np.float32, False,
+                             {"involution": 1e-5}),
+}
+
+
+@pytest.mark.parametrize("name", list(POLAR_2X2))
+def test_polar_2x2_properties(name):
+    """tests/test_polar.py's '2d' checks on grid122's layout: U
+    orthogonal, U H = A, U against the exact factor, H symmetric PSD; for
+    symmetric A, U a symmetric involution."""
+    make, dtype, compute_h, bars = POLAR_2X2[name]
+    a_np, u_true = make()
+    got = R.world(R.polar_2x2_world, a_np.astype(dtype), compute_h)
+    assert got["u"].dtype == dtype and (got["h"] is None) != compute_h
+    u = np.asarray(got["u"], np.float64)
+    h = None if got["h"] is None else np.asarray(got["h"], np.float64)
+    errors = _errors(a_np, u, h)
+    if "orth" in bars:
+        assert errors[0] < bars["orth"], errors
+    if "rec" in bars:
+        assert errors[1] < bars["rec"], errors
+    if "exact" in bars:
+        assert np.abs(u - u_true).max() < bars["exact"]
+    if "psd" in bars:
+        np.testing.assert_allclose(h, h.T, atol=1e-6)
+        assert np.linalg.eigvalsh(h).min() > -bars["psd"]
+    if "involution" in bars:
+        n = u.shape[1]
+        np.testing.assert_allclose(u, u.T, atol=bars["involution"])
+        assert np.linalg.norm(u @ u - np.eye(n)) / np.sqrt(n) \
+            < bars["involution"]

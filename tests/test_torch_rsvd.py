@@ -25,7 +25,6 @@ CAPITAL_TRMM_METHOD=tri: the SYRK and TRMM plain versions).
 
 import dataclasses
 import functools
-import os
 from unittest import mock
 
 import jax
@@ -34,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_mesh_ranks as R
 from capital_tpu.apps import rsvd as jrsvd
 from capital_tpu.grid import Grid as JGrid
 from capital_tpu_torch import Grid, interop
@@ -163,7 +163,8 @@ def _own_planted():
     a_np, s_true = _planted(m, n, rank)
     cfg = rsvd.Config(k=rank, oversample=8, power_iters=1,
                       qr=cacqr.Config(num_iter=2, gram_kernel="tri"))
-    with mock.patch.dict(os.environ, {"CAPITAL_TRMM_METHOD": "tri"}):
+    with pytest.MonkeyPatch.context() as mp:
+        R.setenv(mp, CAPITAL_TRMM_METHOD="tri")
         reset_counters()
         u, s, vt = rsvd.rsvd(_grid(), torch.from_numpy(a_np), cfg)
         used = counters()

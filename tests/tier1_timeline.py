@@ -2,22 +2,26 @@
 when, what ran beside the long pole, how many rank processes were alive,
 and the CPU the whole command burned.
 
-    # run a command (the Tier-1 verify line of ROADMAP.md, or that line with
-    # tests/test_torch_*.py in place of tests/) and record it in DIR:
+    # run a command (the Tier-1 line, or that line with tests/test_torch_*.py
+    # in place of tests/) and record it in DIR:
     python tests/tier1_timeline.py run DIR -- bash -c '<command>'
     python tests/tier1_timeline.py report DIR [--junit FILE] [--pole tests/test_polar.py]
 
-`run` loads this file into every pytest process of the command as a plugin
-(PYTEST_ADDOPTS -p, PYTHONPATH), which writes each test's worker, start,
-end and phase durations to DIR/tests/<worker>.jsonl; samples every half
-second the rank processes alive and running (children of
-multiprocessing's spawn and fork server) into DIR/ranks.jsonl; and
-writes the command's wall time, exit code and the user and system CPU
-seconds of every process it waited for into DIR/run.json. `report`
-prints each file's start, end (seconds from the start), worker, items
-and busy seconds, the file that ended last, the long pole's window and
-the files beside it, the peak of rank processes, and from a junit file
-the summed test time of the port's files and of the rest.
+`run` loads this file into every pytest process of the command as a
+plugin (PYTEST_ADDOPTS -p, PYTHONPATH), which writes each test's worker,
+start, end, phase durations, the module and session fixtures set up for
+it and its process's count of 8-rank worlds started to
+DIR/tests/<worker>.jsonl; samples every half second the rank processes
+alive and running (children of multiprocessing's spawn and fork server)
+into DIR/ranks.jsonl; and writes the command's wall time, exit code and
+the user and system CPU seconds of every process it waited for into
+DIR/run.json. `report` prints each file's start, end (seconds from the
+start), worker, items and busy seconds, the file that ended last, every
+call over SLOW_CALL seconds, the long pole's window and the files beside
+it; per worker each module's first item, the runs its items came in, the
+fixtures they set up and the worlds they started, with the totals; the
+peak of rank processes; and from a junit file the summed test time of
+the port's files and of the rest.
 """
 
 from __future__ import annotations
@@ -35,7 +39,9 @@ import xml.etree.ElementTree as ET
 
 _start: dict = {}
 _phases: dict = {}
+_fixtures: list = []  # module and session fixtures set up for the current item
 _relay = [False]  # the xdist controller: it only relays the workers' reports
+SLOW_CALL = 60.0  # seconds: `report` lists every call longer
 
 
 # --------------------------------------------------------------- the plugin
@@ -47,6 +53,12 @@ def pytest_configure(config):
 
 def pytest_runtest_logstart(nodeid, location):
     _start[nodeid] = time.time()
+    _fixtures.clear()
+
+
+def pytest_fixture_setup(fixturedef, request):
+    if fixturedef.scope in ("module", "session"):
+        _fixtures.append(fixturedef.argname)
 
 
 def pytest_runtest_logreport(report):
@@ -64,6 +76,11 @@ def pytest_runtest_logfinish(nodeid, location):
     os.makedirs(os.path.join(out, "tests"), exist_ok=True)
     row = {"id": nodeid, "w": worker, "s": _start.pop(nodeid, None),
            "e": time.time(), **_phases.pop(nodeid, {})}
+    if _fixtures:
+        row["fx"] = list(_fixtures)
+    ranks = sys.modules.get("torch_mesh_ranks")
+    if ranks is not None:
+        row["worlds"] = ranks.World.starts
     with open(os.path.join(out, "tests", worker + ".jsonl"), "a") as f:
         f.write(json.dumps(row) + "\n")
 
@@ -123,27 +140,74 @@ def run(out_dir: str, cmd: list) -> int:
 
 # --------------------------------------------------------------- report
 
+def _workers(rows: list, t0: float) -> None:
+    """Per worker, each module in the order it first ran there: its first
+    item's start, items, the runs of consecutive items it came in (each
+    run sets its module fixtures up anew), the module and session
+    fixtures set up and the 8-rank worlds started during its items; then
+    the totals over workers."""
+    setups: collections.Counter = collections.Counter()
+    worlds = 0
+    by_worker = collections.defaultdict(list)
+    for r in rows:
+        by_worker[r["w"]].append(r)
+    for w in sorted(by_worker):
+        mods: dict = {}
+        prev_mod, seen = None, 0
+        for r in sorted(by_worker[w], key=lambda r: r["s"]):
+            mod = r["id"].split("::")[0]
+            x = mods.setdefault(mod, {"s": r["s"], "first": r["id"], "n": 0,
+                                      "runs": 0, "fx": collections.Counter(),
+                                      "worlds": 0})
+            x["n"] += 1
+            x["runs"] += mod != prev_mod
+            prev_mod = mod
+            x["fx"].update(r.get("fx", []))
+            now = r.get("worlds", seen)
+            x["worlds"] += now - seen
+            seen = now
+        worlds += seen
+        print(f"{w}: {len(by_worker[w])} items, {seen} worlds started")
+        for mod, x in mods.items():
+            fx = " ".join(f"{k}x{v}" for k, v in sorted(x["fx"].items()))
+            print(f"  {x['s'] - t0:7.1f} {x['n']:4d} items {x['runs']:3d} runs"
+                  f" {x['worlds']:2d} worlds  {x['first'].split('::', 1)[1]}"
+                  f" ({mod})  {fx}")
+            for k, v in x["fx"].items():
+                setups[(mod, k)] += v
+    print(f"8-rank worlds started: {worlds}")
+    print("module and session fixtures set up more than once:")
+    for (mod, k), v in sorted(setups.items()):
+        if v > 1:
+            print(f"  {v:3d} {os.path.basename(mod)}::{k}")
+
+
 def report(out_dir: str, junit: str | None, pole: str) -> None:
     with open(os.path.join(out_dir, "run.json")) as f:
         t0 = json.load(f)["t0"]
     files: dict = collections.defaultdict(
         lambda: {"s": float("inf"), "e": 0.0, "w": set(), "n": 0, "busy": 0.0})
+    rows = []
     tdir = os.path.join(out_dir, "tests")
     for name in sorted(os.listdir(tdir)):
         with open(os.path.join(tdir, name)) as f:
-            for line in f:
-                r = json.loads(line)
-                x = files[r["id"].split("::")[0]]
-                x["s"], x["e"] = min(x["s"], r["s"]), max(x["e"], r["e"])
-                x["w"].add(r["w"])
-                x["n"] += 1
-                x["busy"] += r["e"] - r["s"]
+            rows += [json.loads(line) for line in f]
+    for r in rows:
+        x = files[r["id"].split("::")[0]]
+        x["s"], x["e"] = min(x["s"], r["s"]), max(x["e"], r["e"])
+        x["w"].add(r["w"])
+        x["n"] += 1
+        x["busy"] += r["e"] - r["s"]
     print("  start     end worker items   busy file")
     for name, x in sorted(files.items(), key=lambda kv: kv[1]["s"]):
         print(f"{x['s'] - t0:7.1f} {x['e'] - t0:7.1f} {','.join(sorted(x['w'])):6s}"
               f" {x['n']:5d} {x['busy']:6.1f} {name}")
     last = max(files, key=lambda k: files[k]["e"])
     print(f"ends last: {last} at {files[last]['e'] - t0:.1f} s")
+    print(f"calls over {SLOW_CALL:g} s:")
+    for r in sorted(rows, key=lambda r: -r.get("call", 0)):
+        if r.get("call", 0) > SLOW_CALL:
+            print(f"  {r['call']:7.1f} {r['w']} {r['id']}")
     if pole in files:
         p = files[pole]
         beside = sorted(os.path.basename(k) for k, x in files.items()
@@ -153,6 +217,7 @@ def report(out_dir: str, junit: str | None, pole: str) -> None:
               f"{','.join(sorted(p['w']))} items done {p['n']}")
         print(f"beside it ({len(beside)}, {len(port)} of the port's): "
               + " ".join(beside))
+    _workers(rows, t0)
     with open(os.path.join(out_dir, "ranks.jsonl")) as f:
         samples = [json.loads(line) for line in f]
     for key in ("alive", "running"):

@@ -265,6 +265,16 @@ def _drop_groups() -> None:
     collectives._ORDERS.clear()
 
 
+def setenv(mp: pytest.MonkeyPatch, **env: str) -> None:
+    """Sets `env` for the test in os.environ alone: os.environ becomes a
+    dict that holds it (undone with `mp`), and the C environment is left
+    as it was. Both packages read their CAPITAL_* switches from
+    os.environ; a C setenv that adds a name can move the environment
+    under an XLA or torch thread that reads it, and a test worker died of
+    SIGSEGV so."""
+    mp.setattr(os, "environ", {**os.environ, **env})
+
+
 # ---------------------------------------------------------------------------
 # time limits: every port test file imports limit_module and limit_test,
 # and marks its tests with pytest.mark.time_limit(seconds, setup=seconds)
@@ -1195,6 +1205,19 @@ def qr_polar_world(ops: dict) -> dict:
         "psd": _np(linalg.nearest_psd(flat, near, polar_cfg()))}
     out["rank"] = rank
     return out
+
+
+def polar_2x2_world(a: np.ndarray, compute_h: bool) -> dict:
+    """polar() of `a` (its dtype) in the '2d' layout on the flat 2 x 2
+    view, with or without H."""
+    from capital_tpu_torch import Grid, interop
+    from capital_tpu_torch.algs import polar
+
+    flat = _flat(Grid.square(c=2, d=2))
+    res = polar.polar(flat, interop.dist_from_numpy(a, flat),
+                      polar_cfg(compute_h=compute_h), layout="2d")
+    u, h = res if compute_h else (res, None)
+    return {"u": _np(u), "h": None if h is None else _np(h)}
 
 
 LIN_N, LIN_K = 128, 8
