@@ -11,6 +11,8 @@ def reset_counters() -> None:
     cuda_trmm.trmm_upper.launches = 0
     cuda_trmm.trmm_upper.by_case = dict.fromkeys(cuda_trmm.CASES, 0)
     cuda_syrk.syrk_upper.launches = 0
+    cuda_syrk.syrk_upper.by_route = dict.fromkeys(
+        cuda_syrk.syrk_upper.by_route, 0)
     cuda_chol.chol_inv_cuda.launches = 0
     blas.trmm.dot_calls = 0
     blas.syrk.dot_calls = 0
@@ -24,8 +26,10 @@ def reset_counters() -> None:
 
 
 def counters() -> dict:
-    """Kernel launches since the last reset (`getrf_leaf_by_route` splits
-    the LU leaf's by route: resident, tall), with the fallbacks that
+    """Kernel launches since the last reset (`syrk_upper_by_route` splits
+    SYRK's by route: `tiles`, one CTA a tile, and `split`, the rows split
+    too, with `max_splits`, the most splits of any; `getrf_leaf_by_route`
+    the LU leaf's: resident, tall), with the fallbacks that
     bypassed a kernel (`trmm_dot`, `syrk_dot`, `chol_xla`; `gram_dot`,
     cacqr's plain Gram, blas.gram_dot; for LU
     `leaf_plain`, the plain leaf that CAPITAL_LU_LEAF=jax asks for, and
@@ -37,6 +41,7 @@ def counters() -> dict:
         "trmm_upper": cuda_trmm.trmm_upper.launches,
         "trmm_upper_by_case": dict(cuda_trmm.trmm_upper.by_case),
         "syrk_upper": cuda_syrk.syrk_upper.launches,
+        "syrk_upper_by_route": dict(cuda_syrk.syrk_upper.by_route),
         "chol_inv": cuda_chol.chol_inv_cuda.launches,
         "trmm_dot": blas.trmm.dot_calls,
         "syrk_dot": blas.syrk.dot_calls,

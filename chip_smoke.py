@@ -21,7 +21,11 @@
      16384 x 16384 window, a ragged 2995 x 1000 window at an unaligned
      offset, a 512 x 512 window (the path's smallest) and a 17000 x 256
      operand (deeper than 32 x 512 rows, so the kernels' fold fires), G
-     bitwise symmetric each time; at 'high' also SYRK's split pass on the
+     bitwise symmetric and bitwise the same in a second call each time,
+     and at 'highest' held against the plain version on the launch's row
+     splits (cuda_syrk.splits_for: the ragged window takes 3, the 17000 x
+     256 operand 2, the path shapes below as many as their tiles leave
+     the card room for); at 'high' also SYRK's split pass on the
      ragged window, bitwise against its plain version (hi and lo),
      bf16-in / bf16-out SYRK and TRMM (all four cases) at 'default'
      (4096^2, integer-valued so every summation order is exact: equal to
@@ -444,11 +448,23 @@ def tree(n: int, bc: int, split: int = 1):
     return l1 + l2, i1 + i2 + 1
 
 
-def zero_counts() -> dict:
-    """ops.counters()'s keys, every count 0: the start of a path's
-    expected launch counts."""
-    from capital_tpu_torch.ops import counters
+def counters() -> dict:
+    """ops.counters() without `syrk_upper_by_route`, which the paths'
+    expected counts leave out (whether a call splits A's rows follows from
+    its shape and the card); its routes must add up to SYRK's launches."""
+    from capital_tpu_torch import ops
 
+    got = ops.counters()
+    routes = got.pop("syrk_upper_by_route")
+    if routes["tiles"] + routes["split"] != got["syrk_upper"]:
+        raise RuntimeError(f"SYRK routes {routes} do not add up to its "
+                           f"{got['syrk_upper']} launches")
+    return got
+
+
+def zero_counts() -> dict:
+    """counters()'s keys, every count 0: the start of a path's expected
+    launch counts."""
     return {k: (dict.fromkeys(v, 0) if isinstance(v, dict) else 0)
             for k, v in counters().items()}
 
@@ -491,7 +507,7 @@ def add_counts(want: dict, more: dict) -> None:
 
 
 def kernel_phase(level: str, failures: list) -> list:
-    from capital_tpu_torch.ops.cuda_syrk import syrk_upper, syrk_upper_plain
+    from capital_tpu_torch.ops.cuda_syrk import syrk_upper
     from capital_tpu_torch.ops.cuda_trmm import trmm_upper, trmm_upper_plain
 
     dev = torch.device("cuda", 0)
@@ -576,7 +592,8 @@ def kernel_phase(level: str, failures: list) -> list:
     # ragged window at an unaligned offset (n = 1000 is no multiple of 128,
     # m = 2995 none of 512; the FFMA kernel's edge path), 512^2, the main
     # path's smallest call, and 17000 x 256, deeper than 32 x 512 rows, so
-    # the fold fires. G must be bitwise symmetric everywhere
+    # the fold fires (at 'highest' in the first of two row splits). G must
+    # be bitwise symmetric everywhere
     tall = torch.rand((17000, 256), generator=gen, device=dev) - 0.5
     syrk_cases = ((None, work, bw), ("ragged", work, (5, 3, 2995, 1000)),
                   ("512", work, (0, n, 512, 512)),
@@ -589,13 +606,13 @@ def kernel_phase(level: str, failures: list) -> list:
             return syrk_upper(src, a_window=win, matmul_precision=level)
 
         ms = events_ms(ks, 3 if case is None else 20)
-        got = ks()
-        check_symmetric(got, f"syrk_upper[{case}]@{level}", failures)
-        plain_ms, want = once_ms(lambda: syrk_upper_plain(view, prec=level))
+        got, plain_ms, want, splits = syrk_checked(
+            ks, view, level, f"syrk_upper[{case}]@{level}", failures)
         lib_ms = events_ms(lambda: torch.matmul(view.T, view),
                            2 if case is None else 20)
         row = add("syrk_upper", case, [h, w], got, plain_ms, want, ms, lib_ms,
                   passes * h * w * (w + 1), 4 * (h * w + w * w), peak)
+        row["splits"] = splits
         if case == "ragged" and level == "high":
             row["split_bitwise"] = {lvl: check_pack(
                 view, lvl, "syrk_upper split pass", failures)
@@ -622,7 +639,7 @@ def cacqr_rows(level: str, gen, failures: list, add) -> None:
     its plain version on the whole operand (row offsets past 2^31 bytes,
     the fold firing many times), both timed at that shape; G is bitwise
     symmetric."""
-    from capital_tpu_torch.ops.cuda_syrk import syrk_upper, syrk_upper_plain
+    from capital_tpu_torch.ops.cuda_syrk import syrk_upper
     from capital_tpu_torch.ops.cuda_trmm import trmm_upper, trmm_upper_plain
 
     m, n, _, chunks = next(r for r in CACQR_RUNS if r[2] == level)
@@ -633,12 +650,12 @@ def cacqr_rows(level: str, gen, failures: list, add) -> None:
         return syrk_upper(a, matmul_precision=level)
 
     ms = events_ms(ks, 3)
-    got = ks()
-    check_symmetric(got, f"syrk_upper[cacqr]@{level}", failures)
-    plain_ms, want = once_ms(lambda: syrk_upper_plain(a, prec=level))
+    got, plain_ms, want, splits = syrk_checked(
+        ks, a, level, f"syrk_upper[cacqr]@{level}", failures)
     lib_ms = events_ms(lambda: torch.matmul(a.T, a), 3)
-    add("syrk_upper", "cacqr", [m, n], got, plain_ms, want, ms, lib_ms,
-        passes * m * n * (n + 1), 4 * (m * n + n * n), peak)
+    row = add("syrk_upper", "cacqr", [m, n], got, plain_ms, want, ms, lib_ms,
+              passes * m * n * (n + 1), 4 * (m * n + n * n), peak)
+    row["splits"] = splits
     del got, want
 
     mq = m // chunks  # one formQ call's rows
@@ -672,7 +689,7 @@ def polar_rows(gen, failures: list, add) -> None:
     """TRMM side='R' (transposed and not) and SYRK at the polar headline's
     shape, 2^18 x 2048 f32 'highest', each held against its plain version
     on the whole operand; G is bitwise symmetric."""
-    from capital_tpu_torch.ops.cuda_syrk import syrk_upper, syrk_upper_plain
+    from capital_tpu_torch.ops.cuda_syrk import syrk_upper
     from capital_tpu_torch.ops.cuda_trmm import trmm_upper, trmm_upper_plain
 
     m, n = POLAR_SHAPE
@@ -702,12 +719,12 @@ def polar_rows(gen, failures: list, add) -> None:
         return syrk_upper(a, matmul_precision="highest")
 
     ms = events_ms(ks, 3)
-    got = ks()
-    check_symmetric(got, "syrk_upper[polar]@highest", failures)
-    plain_ms, want = once_ms(lambda: syrk_upper_plain(a, prec="highest"))
+    got, plain_ms, want, splits = syrk_checked(
+        ks, a, "highest", "syrk_upper[polar]@highest", failures)
     lib_ms = events_ms(lambda: torch.matmul(a.T, a), 3)
-    add("syrk_upper", "polar", [m, n], got, plain_ms, want, ms, lib_ms,
-        ops, 4 * (m * n + n * n), PEAK_F32)
+    row = add("syrk_upper", "polar", [m, n], got, plain_ms, want, ms, lib_ms,
+              ops, 4 * (m * n + n * n), PEAK_F32)
+    row["splits"] = splits
     del a, u, got, want
     torch.cuda.empty_cache()
 
@@ -716,7 +733,7 @@ def eigh_rows(gen, failures: list, add) -> None:
     """TRMM side='R' and SYRK at the [eigh] path's largest call, the top
     sign's 8192^2 'highest' update and Gram, each held against its plain
     version on the whole operand; G is bitwise symmetric."""
-    from capital_tpu_torch.ops.cuda_syrk import syrk_upper, syrk_upper_plain
+    from capital_tpu_torch.ops.cuda_syrk import syrk_upper
     from capital_tpu_torch.ops.cuda_trmm import trmm_upper, trmm_upper_plain
 
     n = EIGH_N
@@ -742,12 +759,12 @@ def eigh_rows(gen, failures: list, add) -> None:
         return syrk_upper(a, matmul_precision="highest")
 
     ms = events_ms(ks, 3)
-    got = ks()
-    check_symmetric(got, "syrk_upper[eigh]@highest", failures)
-    plain_ms, want = once_ms(lambda: syrk_upper_plain(a, prec="highest"))
+    got, plain_ms, want, splits = syrk_checked(
+        ks, a, "highest", "syrk_upper[eigh]@highest", failures)
     lib_ms = events_ms(lambda: torch.matmul(a.T, a), 3)
-    add("syrk_upper", "eigh", [n, n], got, plain_ms, want, ms, lib_ms, ops,
-        4 * 2 * n * n, PEAK_F32)
+    row = add("syrk_upper", "eigh", [n, n], got, plain_ms, want, ms, lib_ms,
+              ops, 4 * 2 * n * n, PEAK_F32)
+    row["splits"] = splits
     del a, u, got, want
     torch.cuda.empty_cache()
 
@@ -759,7 +776,7 @@ def rsvd_rows(gen, failures: list, add) -> None:
     operand; G is bitwise symmetric. The plain Gram's time (blas.gram_dot,
     the port's 'dot' route) is added beside SYRK's."""
     from capital_tpu_torch.ops import blas
-    from capital_tpu_torch.ops.cuda_syrk import syrk_upper, syrk_upper_plain
+    from capital_tpu_torch.ops.cuda_syrk import syrk_upper
     from capital_tpu_torch.ops.cuda_trmm import trmm_upper, trmm_upper_plain
 
     dev = gen.device
@@ -771,12 +788,12 @@ def rsvd_rows(gen, failures: list, add) -> None:
             return syrk_upper(a, matmul_precision="highest")
 
         ms = events_ms(ks, 5)
-        got = ks()
-        check_symmetric(got, f"syrk_upper[{case}]@highest", failures)
-        plain_ms, want = once_ms(lambda: syrk_upper_plain(a, prec="highest"))
+        got, plain_ms, want, splits = syrk_checked(
+            ks, a, "highest", f"syrk_upper[{case}]@highest", failures)
         lib_ms = events_ms(lambda: torch.matmul(a.T, a), 5)
         row = add("syrk_upper", case, [m, l], got, plain_ms, want, ms, lib_ms,
                   m * l * (l + 1), 4 * (m * l + l * l), PEAK_F32)
+        row["splits"] = splits
         row["gram_dot_ms"] = events_ms(lambda: blas.gram_dot(a), 5)
         del got, want
         u = torch.triu(torch.rand((l, l), generator=gen, device=dev))
@@ -795,6 +812,23 @@ def rsvd_rows(gen, failures: list, add) -> None:
             PEAK_F32)
         del a, u, out, want
     torch.cuda.empty_cache()
+
+
+def syrk_checked(ks, a: torch.Tensor, level: str, what: str,
+                 failures: list):
+    """ks()'s G of a, bitwise symmetric and bitwise the same in a second
+    call, with the plain version's time and G on the kernel's row splits
+    (cuda_syrk.splits_for) and their count."""
+    from capital_tpu_torch.ops.cuda_syrk import splits_for, syrk_upper_plain
+
+    got = ks()
+    check_symmetric(got, what, failures)
+    if not torch.equal(ks(), got):
+        failures.append(f"{what}: two calls on one operand differ")
+    splits = splits_for(a, level=level)
+    plain_ms, want = once_ms(lambda: syrk_upper_plain(a, prec=level,
+                                                      splits=splits))
+    return got, plain_ms, want, splits
 
 
 def check_symmetric(g: torch.Tensor, what: str, failures: list) -> None:
@@ -985,7 +1019,7 @@ def leaf_rows(gen, add) -> None:
 def main_path(n: int, level: str, failures: list) -> dict:
     from capital_tpu_torch import Grid, matrix, validate
     from capital_tpu_torch.algs import cholinv
-    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops import reset_counters
     from capital_tpu_torch.ops.precision import default_matmul_precision
 
     grid = Grid.square(c=1, d=1)
@@ -1138,7 +1172,7 @@ def lu_path(n: int, nb: int, lookahead: bool, k_rhs: int,
     from capital_tpu_torch import Grid
     from capital_tpu_torch.algs import lu
     from capital_tpu_torch.bench.lu import residual
-    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops import reset_counters
     from capital_tpu_torch.ops.lapack import perm_from_pivots
     from capital_tpu_torch.ops.precision import default_matmul_precision, dot
 
@@ -1208,10 +1242,13 @@ def lu_path(n: int, nb: int, lookahead: bool, k_rhs: int,
 def cacqr_path(m: int, n: int, level: str, chunks: int,
                failures: list) -> dict:
     """CholeskyQR2 (cacqr.factor_1d) of tall_skinny(m, n, seed 0), f32 at
-    `level`, two calls on fresh operands; validated at 'highest'."""
-    from capital_tpu_torch import Grid, matrix, validate
+    `level`, two calls on fresh operands; validated at 'highest'. Both
+    Grams take the route of their shape: A's rows split at 'highest' where
+    the tiles leave the card idle (2^20 x 1024: 36 tiles)."""
+    from capital_tpu_torch import Grid, matrix, ops, validate
     from capital_tpu_torch.algs import cacqr
-    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops import reset_counters
+    from capital_tpu_torch.ops.cuda_syrk import splits_for
     from capital_tpu_torch.ops.precision import default_matmul_precision
 
     grid = Grid.square(c=1, d=1)
@@ -1228,6 +1265,8 @@ def cacqr_path(m: int, n: int, level: str, chunks: int,
         reset_counters()
         secs, (q, r) = once_ms(lambda: run(a))
         got = counters()
+        routes = ops.counters()["syrk_upper_by_route"]
+        splits = splits_for(a, level=level)
         del q, r, a
         a = operand()
         secs2, (q, r) = once_ms(lambda: run(a))
@@ -1240,6 +1279,11 @@ def cacqr_path(m: int, n: int, level: str, chunks: int,
     want["trmm_upper_by_case"].update(R=2 * chunks, L=1)
     if got != want:
         failures.append(f"cacqr {m}x{n}: launch counts {got} != {want}")
+    want_routes = {"tiles": 2 * (splits == 1), "split": 2 * (splits > 1),
+                   "max_splits": splits}
+    if routes != want_routes:
+        failures.append(f"cacqr {m}x{n}: SYRK routes {routes} != "
+                        f"{want_routes}")
     orth = float(validate.qr_orthogonality(grid, q))
     a = operand()
     res = float(validate.qr_residual(grid, a, q, r))
@@ -1260,7 +1304,7 @@ def cacqr_path(m: int, n: int, level: str, chunks: int,
            "library_ms": lib_ms, "vs_library": lib_ms / best_ms,
            "orthogonality": orth, "residual": res,
            "orthogonality_f64": orth64, "residual_f64": res64,
-           "launches": got}
+           "launches": got, "syrk_routes": routes}
     print(f"[cacqr] {json.dumps(rec)}", flush=True)
     return rec
 
@@ -1298,7 +1342,7 @@ def f3_phase(failures: list) -> dict:
     torch.mm, are also held to an f64 Gram (reported, not bounded)."""
     from capital_tpu_torch import Grid
     from capital_tpu_torch.algs import cacqr
-    from capital_tpu_torch.ops import blas, counters, reset_counters
+    from capital_tpu_torch.ops import blas, reset_counters
     from capital_tpu_torch.ops.cuda_syrk import syrk_upper
 
     grid = Grid.square(c=1, d=1)
@@ -1395,7 +1439,7 @@ def polar_paths(failures: list, keep: dict) -> list:
     f64 singular values and the library time go into `keep` for [svd]."""
     from capital_tpu_torch import Grid, matrix
     from capital_tpu_torch.algs import polar
-    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops import reset_counters
     from capital_tpu_torch.ops.precision import default_matmul_precision
 
     grid = Grid.square(c=1, d=1)
@@ -1477,7 +1521,7 @@ def spd_solve_path(failures: list) -> dict:
     from capital_tpu_torch import Grid, linalg
     from capital_tpu_torch.algs import cholinv
     from capital_tpu_torch.bench import solve as bsolve
-    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops import reset_counters
     from capital_tpu_torch.ops.precision import default_matmul_precision
 
     n, k, level, refine = SPD_RUN
@@ -1531,7 +1575,7 @@ def lstsq_paths(failures: list) -> list:
     from capital_tpu_torch import Grid, linalg
     from capital_tpu_torch.algs import cacqr, tsqr
     from capital_tpu_torch.bench import solve as bsolve
-    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops import reset_counters
     from capital_tpu_torch.ops.precision import default_matmul_precision
 
     m, n, k, level, refine = LSTSQ_RUN
@@ -1608,7 +1652,7 @@ def linalg_phase(failures: list) -> dict:
 
     from capital_tpu_torch import Grid, linalg, matrix
     from capital_tpu_torch.algs import cholinv, lu, newton, polar
-    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops import reset_counters
     from capital_tpu_torch.ops.precision import default_matmul_precision
 
     grid = Grid.square(c=1, d=1)
@@ -1768,7 +1812,7 @@ def stage_summary(rec: list) -> dict:
 def counted_call(fn):
     """(ms, result, launch counts, recorded stages, peak bytes above what
     was allocated before) of one call of fn."""
-    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops import reset_counters
 
     rec: list = []
     torch.cuda.synchronize()
@@ -2464,7 +2508,7 @@ def autotune_phase(failures: list) -> dict:
     these shapes, so it records none. Each alg's sweep must launch every
     kernel its path reaches."""
     from capital_tpu_torch.autotune import tune
-    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops import reset_counters
 
     work = os.path.join("chiprun_out", "autotune")
     os.makedirs(work, exist_ok=True)
@@ -2539,7 +2583,7 @@ def hybrid_phase(failures: list) -> dict:
     Orthogonality and residual below 1e-5, by the kernels and in f64."""
     from capital_tpu_torch import Grid, matrix, validate
     from capital_tpu_torch.algs import cacqr, cholinv
-    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops import reset_counters
     from capital_tpu_torch.ops.precision import default_matmul_precision
 
     m, n = HYBRID_SHAPE
@@ -2585,7 +2629,7 @@ def cyclic_phase(failures: list) -> dict:
     same operand. Residuals below 1e-5."""
     from capital_tpu_torch import Grid, matrix, validate
     from capital_tpu_torch.algs import cholinv, cholinv_cyclic
-    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops import reset_counters
     from capital_tpu_torch.ops.precision import default_matmul_precision
 
     n, bc = CYCLIC_RUN
@@ -2631,7 +2675,7 @@ def drivers_phase(failures: list) -> dict:
     from capital_tpu_torch import Grid, validate
     from capital_tpu_torch.bench import scaling, summa_gemm
     from capital_tpu_torch.entry import entry
-    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops import reset_counters
 
     out = {}
     reset_counters()
@@ -2729,7 +2773,7 @@ def mesh_rank(lstsq_library: dict, refs: dict) -> dict:
 
     from capital_tpu_torch import Grid, matrix, validate
     from capital_tpu_torch.algs import cacqr, cholinv
-    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops import reset_counters
     from capital_tpu_torch.ops.precision import default_matmul_precision
     from capital_tpu_torch.ops.precision import dot as pdot
     from capital_tpu_torch.parallel import darray, summa
@@ -3385,7 +3429,7 @@ def dryrun_rank() -> dict:
     import torch.distributed as dist
 
     from capital_tpu_torch import entry
-    from capital_tpu_torch.ops import counters, reset_counters
+    from capital_tpu_torch.ops import reset_counters
 
     reset_counters()
     t0 = time.perf_counter()
@@ -3503,7 +3547,7 @@ def profile_check(reps: int) -> int:
     reading, whether the witness was seen, the launches the wrapper counted
     in that call (ops.counters()) and its start in seconds. Readings to
     chiprun_out/profile_check.json."""
-    from capital_tpu_torch.ops import _build, counters
+    from capital_tpu_torch.ops import _build
     from capital_tpu_torch.ops.cuda_chol import chol_inv_cuda
     from capital_tpu_torch.ops.cuda_getrf import getrf_leaf
 

@@ -7,6 +7,8 @@ Tolerances are the tile_dot ones: relative Frobenius 1e-6 at
 highest/default, 2e-5 at high. The port's G is bitwise symmetric.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ import torch
 
 from capital_tpu.ops.pallas_syrk import syrk_upper as syrk_jax
 from capital_tpu_torch.ops import cuda_syrk, cuda_trmm
+from capital_tpu_torch.ops.cuda_dot import tile_dot_plain
 from torch_mesh_ranks import limit_module, limit_test  # noqa: F401
 
 pytestmark = pytest.mark.time_limit(60, setup=120)
@@ -105,3 +108,67 @@ def test_syrk_wrapper_cpu_route(shape, aw, level):
     got = cuda_syrk.syrk_upper(big, a_window=aw, matmul_precision=level)
     want = cuda_syrk.syrk_upper_plain(cuda_trmm.window(big, aw), prec=level)
     assert torch.equal(got, want) and torch.equal(got, got.T)
+
+
+def _unsplit_schedule(a, t, mc):
+    """syrk_upper_plain as it was before row splits, kept as the reference
+    that one split must equal bit for bit."""
+    m, n = a.shape
+    nc = -(-m // mc)
+    g = torch.zeros((n, n), dtype=torch.float32)
+    for i0 in range(0, n, t):
+        acc = acc2 = None
+        for c in range(nc):
+            rows = slice(c * mc, (c + 1) * mc)
+            p = tile_dot_plain(a[rows, i0:i0 + t], a[rows, i0:],
+                               contract_dim0=True)
+            acc = p if acc is None else acc + p
+            if (c + 1) % 32 == 0 and c != nc - 1:
+                acc2 = acc if acc2 is None else acc2 + acc
+                acc = None
+        g[i0:i0 + t, i0:] = acc if acc2 is None else acc2 + acc
+    return torch.triu(g) + torch.triu(g, 1).T
+
+
+@pytest.mark.parametrize("case", ["one_split", "unit_splits", "jax",
+                                  "split_count"])
+def test_syrk_row_splits(case):
+    """Row splits at 'highest' (t = mc = 128, so a fold is 4096 rows):
+    one split is the schedule without splits bit for bit, as are splits of
+    one fold each (the partials add in the order the folds did); splits of
+    several folds match the JAX kernel as the unsplit schedule does; G is
+    bitwise symmetric. The split count is 1 where the tiles fill the
+    card's waves, more for tall, narrow operands, never more than the
+    folds (or chunks), and leaves no split empty."""
+    if case == "split_count":
+        count = cuda_syrk.split_count
+        assert count(16384, 16384, 132) == 1     # 8256 tiles
+        assert count(8192, 8192, 132) == 1       # eigh's Gram, 2080 tiles
+        assert count(2 ** 20, 1024, 132) == 11   # 36 tiles: 3 waves of 132
+        assert count(2 ** 18, 144, 132) == 16    # 3 tiles, 16 folds
+        assert count(2 ** 22, 1024, 264) > 1
+        assert count(3 * 512, 144, 132) == 3     # one chunk each
+        assert count(512, 144, 264) == 1
+        for m in (1, 511, 513, 16385, 40000, 2 ** 22):
+            s = count(m, 128, 132)
+            units = -(-m // (32 * 512 if m > 32 * 512 else 512))
+            rows = cuda_syrk.split_rows(m, s)
+            assert 1 <= s <= units and (s - 1) * rows < m <= s * rows
+        return
+    a = torch.from_numpy(_data(6, (2 * 4096 + 3 * 128 + 5, 256)))
+    plain = functools.partial(cuda_syrk.syrk_upper_plain, t=128, mc=128)
+    if case == "one_split":
+        got = plain(a, splits=1)
+        assert torch.equal(got, _unsplit_schedule(a, 128, 128))
+    elif case == "unit_splits":
+        got = plain(a, splits=3)
+        assert cuda_syrk.split_rows(a.shape[0], 3, 128) == 4096
+        assert torch.equal(got, plain(a))
+    else:
+        tall = torch.from_numpy(_data(7, (5 * 4096 + 300, 128)))
+        got = plain(tall, splits=2)  # 3 folds, then 2 and a part
+        want = syrk_jax(jnp.asarray(tall.numpy()), interpret=True, t=128,
+                        mc=128)
+        assert _rel(got.numpy(), want) < TOL["highest"]
+        assert not torch.equal(got, plain(tall))
+    assert torch.equal(got, got.T)
