@@ -1,10 +1,11 @@
 """Find a cell's parts by name: its entry in BENCHMARK.json, its
-configuration, traffic mix and workload files, its metrics' readers and
-its entry's adapter and plain reference.
+configuration, traffic mix and workload files, its metrics' readers,
+its flop formula and operand class, and its entry's adapter and plain
+reference.
 
 Everything here is data or a file found by name, so a later change adds
-a cell, a configuration, a traffic mix or a metric by adding files and
-entries, never by editing one.
+a cell, a configuration, a traffic mix, a metric, a flop formula or an
+operand class by adding files and entries, never by editing one.
 """
 
 from __future__ import annotations
@@ -84,15 +85,22 @@ def cell(name: str) -> Cell:
                            if _reports(m, name)])
 
 
-def reader(metric: str):
-    """The `read(run)` function of metrics/<metric>.py."""
-    path = HERE / "metrics" / f"{check_name(metric)}.py"
-    mod_name = "benchmark.metrics." + metric.replace(".", "_").replace(
+def load(folder: str, name: str):
+    """The module of <folder>/<name>.py, loaded from its file (a name may
+    hold '.' and '-'): a metric's reader, a flop formula, an operand
+    class. Raises FileNotFoundError for a name that has no file."""
+    path = HERE / folder / f"{check_name(name)}.py"
+    mod_name = f"benchmark.{folder}." + name.replace(".", "_").replace(
         "-", "_")
     spec = importlib.util.spec_from_file_location(mod_name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric: str):
+    """The `read(run)` function of metrics/<metric>.py."""
+    return load("metrics", metric).read
 
 
 def entry_module(entry: str):

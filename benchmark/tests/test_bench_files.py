@@ -1,6 +1,8 @@
 """Every file the harness finds by name parses and keeps to the shape
-BENCHMARK.json and its names and units must have."""
+BENCHMARK.json and its names and units must have. Any configuration that
+keeps these rules is taken: nothing here names one."""
 
+import ast
 import json
 import re
 
@@ -64,11 +66,27 @@ def test_metric_keys_and_layers():
         assert set(m.get("workloads", CELLS)) <= set(CELLS)
 
 
+def _defines(path, names) -> bool:
+    """Whether the Python file at `path` defines each of `names` at its
+    top level (read, not imported: an adapter imports the program)."""
+    tree = ast.parse(path.read_text())
+    top = {n.name for n in tree.body
+           if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    return set(names) <= top
+
+
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_files(name):
     cell = spec.cell(name)
-    assert cell.entry in ("cholinv_factor", "cacqr_factor_1d")
-    assert cell.config["flops"] in flops.FORMULAS
+    assert _defines(spec.HERE / "entries" / f"{cell.entry}.py", ["Entry"])
+    assert _defines(spec.HERE / "reference" / f"{cell.entry}.py",
+                    ["check", "control"])
+    assert _defines(spec.HERE / "formulas"
+                    / f"{spec.check_name(cell.config['flops'])}.py",
+                    ["per_call"])
+    assert _defines(spec.HERE / "operands"
+                    / f"{spec.check_name(cell.config['operand'])}.py",
+                    ["make"])
     assert cell.config["precision"] in ("highest", "high", "default")
     assert cell.traffic["loop"] == "closed"
     assert cell.traffic["callers"] == 1 and cell.traffic["pool"] >= 1
@@ -79,15 +97,34 @@ def test_cell_files(name):
     assert "setup_s" in e2e and len(e2e) >= 2 and cell.per_layer
     for m in cell.end_to_end + cell.per_layer:
         assert callable(spec.reader(m["name"]))
-    assert (spec.HERE / "reference" / f"{cell.entry}.py").exists()
-    assert (spec.HERE / "entries" / f"{cell.entry}.py").exists()
 
 
 def test_configs_state_their_cut():
+    # each key cut from the source is named in `reduced`, alike in
+    # BENCHMARK.json and the file, and the file's `assumed` states the
+    # published value and why it was cut; no width is cut
     for c in BENCH["configs"]:
         cfg = spec.load_json(spec.ROOT / c["file"])
         assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
-        assert cfg["reduced"] == c["reduced"] == []
+        assert isinstance(c["reduced"], list) and len(c["reduced"]) <= 16
+        assert cfg["reduced"] == c["reduced"]
+        assert len(set(c["reduced"])) == len(c["reduced"])
+        for key in c["reduced"]:
+            spec.check_name(key)
+            assert not key.endswith(("_dim", "_rank")), key
+            stated = cfg["assumed"][key]
+            assert set(stated) == {"published", "why"}, (c["name"], key)
+            assert ONE_LINE.match(stated["why"])
+            assert ONE_LINE.match(str(stated["published"]))
+
+
+def test_a_kernel_metric_names_its_cells():
+    # a metric that reads kernels by name lists the cells they run in,
+    # so that a cell of another configuration does not silently lack it
+    for m in BENCH["per_layer"]:
+        text = (spec.HERE / "metrics" / f"{m['name']}.py").read_text()
+        if "ms_per_call" in text:
+            assert "workloads" in m, m["name"]
 
 
 def test_every_file_under_paths_is_named_from_name_characters():

@@ -1,6 +1,7 @@
 """Nothing the benchmark loads is JAX or the JAX package, compared by the
 whole top-level name (the port's name begins with the JAX package's),
-and the plain references load nothing of the program."""
+and the yardstick (the plain references, the flop formulas, the operand
+classes) loads nothing of the program."""
 
 import ast
 import json
@@ -36,9 +37,11 @@ bench = spec.benchmark_json()
 for m in bench["end_to_end"] + bench["per_layer"]:
     spec.reader(m["name"])
 for c in bench["configs"]:
-    e = spec.load_json(spec.ROOT / c["file"])["entry"]
-    spec.entry_module(e)
-    spec.reference_module(e)
+    cfg = spec.load_json(spec.ROOT / c["file"])
+    spec.entry_module(cfg["entry"])
+    spec.reference_module(cfg["entry"])
+    spec.load("formulas", cfg["flops"])
+    spec.load("operands", cfg["operand"])
 """
     top = _loaded(body)
     assert "capital_tpu_torch" in top and "benchmark" in top
@@ -46,23 +49,29 @@ for c in bench["configs"]:
 
 
 def test_references_load_nothing_of_the_program():
+    # the yardstick: plain references, flop formulas, operand classes
     top = _loaded("""
-import importlib, pathlib
+import importlib
 from benchmark import spec
 for p in sorted((spec.HERE / "reference").glob("*.py")):
     importlib.import_module("benchmark.reference." + p.stem)
+for folder in ("formulas", "operands"):
+    for p in sorted((spec.HERE / folder).glob("*.py")):
+        if p.stem != "__init__":
+            spec.load(folder, p.stem)
 """)
     assert "torch" in top
     assert not top & (FORBIDDEN | {"capital_tpu_torch"})
-    for p in (spec.HERE / "reference").glob("*.py"):
-        for node in ast.walk(ast.parse(p.read_text())):
-            names = ([a.name for a in node.names]
-                     if isinstance(node, ast.Import) else
-                     [node.module or ""] if isinstance(node, ast.ImportFrom)
-                     else [])
-            for n in names:
-                assert n.split(".")[0] not in FORBIDDEN | {
-                    "capital_tpu_torch"}, (p.name, n)
+    for folder in ("reference", "formulas", "operands"):
+        for p in (spec.HERE / folder).glob("*.py"):
+            for node in ast.walk(ast.parse(p.read_text())):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import) else
+                         [node.module or ""]
+                         if isinstance(node, ast.ImportFrom) else [])
+                for n in names:
+                    assert n.split(".")[0] not in FORBIDDEN | {
+                        "capital_tpu_torch"}, (p.name, n)
 
 
 def test_the_check_compares_whole_top_level_names(monkeypatch):

@@ -6,7 +6,7 @@ import math
 
 import pytest
 
-from benchmark import devtrace, flops, harness, spec
+from benchmark import devtrace, flops, harness, spec, traffic
 
 CELL = spec.cell("cacqr.m2e20")
 
@@ -19,17 +19,39 @@ def _readings(calls, **rank):
     return harness.Readings(CELL, 12.5, [r0])
 
 
+def _flops(name, **dims):
+    return flops.per_call({"flops": name}, dims)
+
+
 def test_flop_formulas():
-    assert flops.cholinv(n=3) == 18.0
-    assert flops.cholinv(n=32768) == pytest.approx(2.345e13, rel=1e-3)
+    assert _flops("cholinv", n=3) == 18.0
+    assert _flops("cholinv", n=32768) == pytest.approx(2.345e13, rel=1e-3)
     # two sweeps of: Gram 2mn^2, Q 2mn^2, Cholesky + inverse 2n^3/3
     m, n = 10, 3
-    assert flops.cacqr2(m=m, n=n) == 2 * (2 * m * n * n + 2 * m * n * n
-                                          + 2 * n**3 / 3)
-    assert flops.cacqr2(m=1 << 20, n=1024) == pytest.approx(8.796e12,
-                                                             rel=1e-3)
-    assert flops.per_call({"flops": "cacqr2"}, {"m": m, "n": n}) == \
-        flops.cacqr2(m, n)
+    assert _flops("cacqr2", m=m, n=n) == 2 * (2 * m * n * n + 2 * m * n * n
+                                              + 2 * n**3 / 3)
+    assert _flops("cacqr2", m=1 << 20, n=1024) == pytest.approx(8.796e12,
+                                                                 rel=1e-3)
+    # LU: the leading term 2n^3/3 of LAWN 41's 2n^3/3 - n^2/2 + 5n/6
+    assert _flops("lu", n=3) == 18.0
+    assert _flops("lu", n=32768) == pytest.approx(2.345e13, rel=1e-3)
+    with pytest.raises(FileNotFoundError):
+        _flops("no_such_formula", n=3)
+    with pytest.raises(ValueError):
+        _flops("../flops", n=3)
+
+
+def test_each_cell_counts_the_flops_it_counted_before():
+    # the floats of the formulas as they stood in one module, to the bit
+    want = {"cholinv.n32768": 2.0 * 32768**3 / 3.0,
+            "cacqr.m2e20": 2.0 * (4.0 * 2**20 * 1024 * 1024
+                                  + 2.0 * 1024**3 / 3.0),
+            "cacqr.m2e24.ranks4": 2.0 * (4.0 * 2**24 * 1024 * 1024
+                                         + 2.0 * 1024**3 / 3.0)}
+    for name, f in want.items():
+        c = spec.cell(name)
+        assert flops.per_call(c.config, traffic.shape(c.config, c.traffic)
+                              ).hex() == f.hex(), name
 
 
 def test_tail_is_taken_over_every_call():
@@ -50,7 +72,7 @@ def test_rate_memory_setup_and_dispatch():
              (1.0, 1.03, 2.0, False)]
     r = _readings(calls)
     assert spec.reader("gflops")(r) == pytest.approx(
-        3 * flops.cacqr2(m=1 << 20, n=1024) / 2.0 / 1e9)
+        3 * _flops("cacqr2", m=1 << 20, n=1024) / 2.0 / 1e9)
     assert spec.reader("peak_mem_gib")(r) == 3.0
     assert spec.reader("setup_s")(r) == 12.5
     # the dispatch span leaves out the traced call

@@ -26,7 +26,7 @@ def test_tf32_rounds_to_ten_mantissa_bits_ties_to_even():
 
 
 def test_cholinv_reference_matches_numpy():
-    a = traffic.spd(96, 5, CPU)
+    a = traffic.make("spd", {"n": 96}, 5, CPU)
     r, ri = cholinv_factor.factor(a, leaf=16)
     a64 = a.double().numpy()
     r_np = np.linalg.cholesky(a64).T
@@ -43,7 +43,7 @@ def _qr_np(a64):
 
 
 def test_cacqr_reference_matches_numpy():
-    a = traffic.tall_skinny(3000, 24, 9, CPU)
+    a = traffic.make("tall_skinny", {"m": 3000, "n": 24}, 9, CPU)
     q_np, r_np = _qr_np(a.double().numpy())
     r_ref, r1inv, r2inv = cacqr_factor_1d._factors(
         a, torch.float64, False, plain.OneDevice())
@@ -60,7 +60,7 @@ def test_cacqr_reference_matches_numpy():
 def test_blocks_of_the_reference_cover_every_row(monkeypatch):
     monkeypatch.setattr(cacqr_factor_1d, "ROWS", 7)
     monkeypatch.setattr(plain, "ROWS", 5)
-    a = traffic.tall_skinny(50, 6, 2, CPU)
+    a = traffic.make("tall_skinny", {"m": 50, "n": 6}, 2, CPU)
     q_np, r_np = _qr_np(a.double().numpy())
     nums = cacqr_factor_1d.check(
         a, {"Q": torch.from_numpy(q_np).float(),
@@ -75,8 +75,9 @@ def test_blocks_of_the_reference_cover_every_row(monkeypatch):
 
 @pytest.mark.parametrize("entry,config,operand", [
     (cholinv_factor, {"settings": {"bc": 32}},
-     lambda: traffic.spd(256, 3, CPU)),
-    (cacqr_factor_1d, {}, lambda: traffic.tall_skinny(4096, 64, 3, CPU)),
+     lambda: traffic.make("spd", {"n": 256}, 3, CPU)),
+    (cacqr_factor_1d, {},
+     lambda: traffic.make("tall_skinny", {"m": 4096, "n": 64}, 3, CPU)),
 ])
 def test_the_control_reads_far_above_float32(entry, config, operand):
     a = operand()

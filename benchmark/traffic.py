@@ -9,24 +9,19 @@ operands made at set-up and taken in turn. Its keys:
   callers  1
   pool     operands in the pool; calls alternate over them
   shape    the operand's sizes that the mix sets (the configuration sets
-           the rest): {"n": ...} for an SPD operand, {"m": ...} rows of a
-           tall-skinny one
+           the rest): {"n": ...} for a square operand, {"m": ...} rows of
+           a tall-skinny one
   sample   which call's answer is compared with the reference once the
            window has closed: {"among": [lo, hi]} draws it from the seed
            among calls lo .. hi - 1 (the last call when the window ends
            before it), "last" takes the window's last call (a cell whose
            memory holds no second answer)
 
-Operands are made on the device from the seed with a torch.Generator, in
-a few large calls, in the classes the port's own benches use:
-
-  spd          (U + U^T) / 2 + n I, U uniform in (-0.5, 0.5): SPD and
-               diagonally dominant, as capital_tpu_torch.matrix.symmetric
-  tall_skinny  U uniform in (-0.5, 0.5), column j scaled by
-               linspace(1, 2, n)[j], as matrix.tall_skinny
-
-In a world each rank makes its own block of rows from a generator of its
-own; the reference reads the same blocks.
+Operands are made on the device from the seed, in the class the
+configuration names under `operand`: operands/<class>.py, found by name
+(its docstring states what it makes and its layout over ranks). Operand
+k of the pool on rank r is drawn from mix(seed, k, r); in a world each
+rank makes its own block, and the reference reads the same blocks.
 """
 
 from __future__ import annotations
@@ -34,6 +29,8 @@ from __future__ import annotations
 import random
 
 import torch
+
+from benchmark import spec
 
 _MASK = (1 << 64) - 1
 
@@ -50,28 +47,12 @@ def mix(*parts: int) -> int:
     return z >> 1
 
 
-def _generator(device: torch.device, seed: int) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(seed)
-
-
-def spd(n: int, seed: int, device, dtype=torch.float32) -> torch.Tensor:
-    u = torch.rand((n, n), generator=_generator(device, seed),
-                   device=device, dtype=dtype)
-    u.sub_(0.5)
-    a = u + u.T
-    del u
-    a.mul_(0.5)
-    a.diagonal().add_(float(n))
-    return a
-
-
-def tall_skinny(rows: int, n: int, seed: int, device,
-                dtype=torch.float32) -> torch.Tensor:
-    a = torch.rand((rows, n), generator=_generator(device, seed),
-                   device=device, dtype=dtype)
-    a.sub_(0.5)
-    a.mul_(torch.linspace(1.0, 2.0, n, dtype=dtype, device=device))
-    return a
+def make(operand: str, dims: dict, seed: int, device,
+         dtype=torch.float32, rank: int = 0, ranks: int = 1) -> torch.Tensor:
+    """Rank `rank`'s part of one operand of class `operand`
+    (operands/<operand>.py) over `ranks`, drawn from `seed`."""
+    return spec.load("operands", operand).make(dims, seed, device, dtype,
+                                               rank, ranks)
 
 
 def shape(config: dict, traffic: dict) -> dict:
@@ -86,21 +67,8 @@ def operands(config: dict, traffic: dict, seed: int, device,
         raise ValueError("the generator makes closed loops of one caller")
     dims = shape(config, traffic)
     dtype = getattr(torch, config["dtype"])
-    pool = []
-    for k in range(traffic["pool"]):
-        s = mix(seed, k, rank)
-        if config["operand"] == "spd":
-            if ranks != 1:
-                raise ValueError("an SPD operand is made on one device")
-            pool.append(spd(dims["n"], s, device, dtype))
-        elif config["operand"] == "tall_skinny":
-            m, n = dims["m"], dims["n"]
-            if m % ranks:
-                raise ValueError(f"{m} rows do not split over {ranks} ranks")
-            pool.append(tall_skinny(m // ranks, n, s, device, dtype))
-        else:
-            raise ValueError(f"unknown operand class {config['operand']!r}")
-    return pool
+    return [make(config["operand"], dims, mix(seed, k, rank), device, dtype,
+                 rank, ranks) for k in range(traffic["pool"])]
 
 
 def sample_index(traffic: dict, seed: int) -> int | None:
